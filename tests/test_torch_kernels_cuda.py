@@ -1,0 +1,101 @@
+"""The port's CUDA kernels on a card: each equals its plain PyTorch version,
+and the env on the card equals the env on the CPU.
+
+This file imports no JAX, so it also runs on a machine with a card and no
+JAX (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
+
+Without a card every test skips.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tile_match_tpu_torch import random as trandom
+from tile_match_tpu_torch.config import EnvConfig
+from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv, random_effective
+from tile_match_tpu_torch.ops import cascade as tcas
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ["colour", "elim", "trips", "trunc", "mask"]
+
+
+def _no_specials(R, C, K, moves=30, **kw):
+    return EnvConfig.create(R, C, K, moves, colourless_specials=(), colour_specials=(), **kw)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R,C,K,B,max_cascades",
+    [(10, 10, 4, 2048, 64), (5, 5, 3, 1000, 64), (20, 20, 6, 256, 64), (6, 6, 3, 130, 64),
+     (7, 9, 4, 300, 2), (32, 32, 5, 64, 64), (1, 8, 3, 50, 64), (8, 1, 3, 50, 64)],
+)
+def test_kernel_matches_plain_version(cuda_device, R, C, K, B, max_cascades):
+    cfg = _no_specials(R, C, K, max_cascades=max_cascades)
+    rng = np.random.default_rng(R * B + C)
+    colour = torch.as_tensor(rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32), device=cuda_device)
+    keys = torch.as_tensor(
+        rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64), device=cuda_device
+    )
+    before = tcas.launches
+    got = tcas.fused_cascade(cfg, colour, keys)
+    torch.cuda.synchronize()
+    assert tcas.launches == before + 1
+    want = tcas.cascade_reference(cfg, colour, keys)
+    for g, w, name in zip(got, want, NAMES):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bad_input(cuda_device):
+    cfg = _no_specials(6, 6, 3)
+    keys = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        tcas.fused_cascade(cfg, torch.ones((4, 6, 6), dtype=torch.int64, device=cuda_device), keys)
+    with pytest.raises(ValueError):
+        tcas.fused_cascade(cfg, torch.ones((4, 6, 6), dtype=torch.int32, device=cuda_device), keys[:3])
+    with pytest.raises(ValueError):
+        tcas.fused_cascade(_no_specials(40, 40, 4), torch.ones((4, 40, 40), dtype=torch.int32,
+                                                              device=cuda_device), keys)
+
+
+@pytest.mark.cuda
+def test_env_on_card_equals_env_on_cpu(cuda_device):
+    cfg = _no_specials(10, 10, 4, moves=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        env = BatchedTileMatchEnv(cfg, 96, dev)
+        key = trandom.PRNGKey(3, dev)
+        states, ts = env.reset(key)
+        rows = []
+        for t in range(7):  # crosses the reset after move 5
+            key, ka = trandom.split(key).unbind(0)
+            states, ts = env.step(states, random_effective(ka, ts))
+            rows.append([states.colour, states.key, ts.reward, ts.info.effective_actions,
+                         ts.info.cascade_trips, ts.done])
+        out[str(dev)] = [[x.cpu() for x in row] for row in rows]
+    for a, b in zip(*out.values()):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fixture_replays_on_card(cuda_device):
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert chip_smoke.replay_fixture(cuda_device) == 40

@@ -1,0 +1,148 @@
+"""Batched, auto-resetting environment (counterpart of
+``tile_match_tpu.envs.batched``).
+
+A batch of boards stepped together.  Every tensor lives on the device the
+caller chose: on a CUDA device the step's cascade is the CUDA kernel, on the
+CPU its plain PyTorch version, through the same code.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from .. import random as trandom
+from ..config import EnvConfig
+from ..engine import generate_board, reset
+from ..ops.effective import effective_mask_settled
+from ..state import EnvState, StepInfo
+from .fused import batched_step_fused
+
+
+@dataclasses.dataclass
+class TimeStep:
+    obs_board: torch.Tensor  # int32[B, 2, R, C]
+    obs_moves_left: torch.Tensor  # int32[B]
+    reward: torch.Tensor  # float32[B]
+    done: torch.Tensor  # bool[B]
+    info: StepInfo
+
+
+def batched_reset(cfg: EnvConfig, key, batch_size: int) -> Tuple[EnvState, TimeStep]:
+    """Reset ``batch_size`` boards from one key int64[2]: board b starts from
+    ``split(key, batch_size)[b]``."""
+    states, infos = reset(cfg, trandom.split(key, batch_size))
+    ts = TimeStep(
+        obs_board=states.board,
+        obs_moves_left=cfg.num_moves - states.timer,
+        reward=torch.zeros(batch_size, dtype=torch.float32, device=key.device),
+        done=torch.zeros(batch_size, dtype=torch.bool, device=key.device),
+        info=infos,
+    )
+    return states, ts
+
+
+def batched_step(
+    cfg: EnvConfig,
+    states: EnvState,
+    actions,
+    auto_reset: bool = True,
+    eff_mask=None,
+) -> Tuple[EnvState, TimeStep]:
+    """Step every board; with ``auto_reset``, regenerate finished episodes.
+
+    A done board is replaced by ``generate_board(split(key)[1])`` (new
+    episode, timer 0); the returned observation and mask are the new
+    episode's, while reward and done refer to the finished one.
+    ``eff_mask``: the previous TimeStep's ``info.effective_actions``, to skip
+    recomputing the current mask.
+    """
+    if eff_mask is None:
+        eff_mask = effective_mask_settled(cfg, states.colour, states.kind)
+    next_states, rewards, dones, infos = batched_step_fused(
+        cfg, states, actions, eff_mask, compute_post_mask=not auto_reset
+    )
+
+    if auto_reset and bool(dones.any()):
+        idx = dones.nonzero()[:, 0]
+        k = trandom.split(next_states.key[idx])[:, 1]
+        colour, kind, key, mask, _gave_up = generate_board(cfg, k)
+        next_states = EnvState(
+            colour=next_states.colour.index_copy(0, idx, colour),
+            kind=next_states.kind.index_copy(0, idx, kind),
+            timer=next_states.timer.index_fill(0, idx, 0),
+            key=next_states.key.index_copy(0, idx, key),
+        )
+        infos = dataclasses.replace(
+            infos, effective_actions=infos.effective_actions.index_copy(0, idx, mask)
+        )
+
+    ts = TimeStep(
+        obs_board=next_states.board,
+        obs_moves_left=cfg.num_moves - next_states.timer,
+        reward=rewards.to(torch.float32),
+        done=dones,
+        info=infos,
+    )
+    return next_states, ts
+
+
+def random_effective(key, ts: TimeStep) -> torch.Tensor:
+    """A uniform draw among each board's effective actions, from threefry
+    bits of ``split(key, B)`` (action 0 where a board has none).  This is
+    the port's own draw, not ``jax.random.categorical``."""
+    mask = ts.info.effective_actions
+    n_eff = mask.sum(-1)
+    bits = trandom.random_bits(trandom.split(key, mask.shape[0]), (1,))[:, 0]
+    pick = bits % n_eff.clamp(min=1)
+    hit = mask & (mask.cumsum(-1) == pick[:, None] + 1)
+    return torch.where(n_eff > 0, hit.to(torch.int32).argmax(-1), 0)
+
+
+def rollout(
+    cfg: EnvConfig,
+    key,
+    batch_size: int,
+    num_steps: int,
+    policy: Optional[Callable] = None,
+    auto_reset: bool = True,
+):
+    """Run a whole batched rollout.  ``policy(key, ts) -> actions`` defaults
+    to ``random_effective``.  Returns the final state plus the stacked
+    rewards float32[T, B] and dones bool[T, B]."""
+    policy = policy or random_effective
+    both = trandom.split(key)
+    key, k0 = both[0], both[1]
+    states, ts = batched_reset(cfg, k0, batch_size)
+    rewards, dones = [], []
+    for _ in range(num_steps):
+        both = trandom.split(key)
+        key, ka = both[0], both[1]
+        actions = policy(ka, ts)
+        states, ts = batched_step(
+            cfg, states, actions, auto_reset=auto_reset,
+            eff_mask=ts.info.effective_actions,
+        )
+        rewards.append(ts.reward)
+        dones.append(ts.done)
+    return states, torch.stack(rewards), torch.stack(dones)
+
+
+class BatchedTileMatchEnv:
+    """Object facade over the functional batched API on one device."""
+
+    def __init__(
+        self, cfg: EnvConfig, batch_size: int, device, auto_reset: bool = True
+    ):
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.auto_reset = auto_reset
+
+    def reset(self, key) -> Tuple[EnvState, TimeStep]:
+        return batched_reset(self.cfg, key.to(self.device), self.batch_size)
+
+    def step(self, states: EnvState, actions) -> Tuple[EnvState, TimeStep]:
+        return batched_step(self.cfg, states, actions, auto_reset=self.auto_reset)

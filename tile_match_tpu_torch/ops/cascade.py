@@ -1,0 +1,112 @@
+"""The fused no-specials cascade: its CUDA kernel's wrapper and its plain
+PyTorch version (counterpart of ``fused_cascade`` / ``cascade_reference`` in
+``tile_match_tpu.ops.pallas_cascade``).
+
+One call runs, for every board, the whole cascade of a move with every
+special disabled (`board.py:367-376` of the original game): delete the union
+of the detected lines, apply gravity, refill from threefry — trip t of board
+b draws ``draw_colour_grid(fold_in(sub_b, t))`` — until the board is
+line-free or ``cfg.max_cascades`` trips have run; then the settled
+effective-action mask of the result.
+
+``fused_cascade`` launches the CUDA kernel (``csrc/cascade.cu``) on CUDA
+tensors and runs ``cascade_reference`` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_build
+from .. import random as trandom
+from ..config import EnvConfig
+from .board_ops import apply_refill, draw_colour_grid, gravity
+from .effective import effective_mask_settled
+from .lines import has_any_line, line_union_mask
+
+# Kernel launches so far; a run resets it to see which kernels it went through.
+launches = 0
+
+
+def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
+    """Plain PyTorch cascade.  colour int32[B, R, C] (all-normal boards),
+    sub_keys int64[B, 2].  Returns (colour int32[B, R, C], elim int32[B],
+    trips int32[B], truncated bool[B], mask bool[B, A]).
+
+    Boards run in lockstep: a board that is line-free stays so, and its
+    trip count stops, so the lockstep trip index is every running board's
+    own trip index."""
+    B = colour.shape[0]
+    kind = torch.ones_like(colour)
+    elim = torch.zeros(B, dtype=torch.int32, device=colour.device)
+    trips = torch.zeros(B, dtype=torch.int32, device=colour.device)
+    for t in range(cfg.max_cascades):
+        active = has_any_line(cfg, colour)
+        if not bool(active.any()):
+            break
+        dmask = line_union_mask(cfg, colour) & active[:, None, None]
+        colour = torch.where(dmask, 0, colour)
+        kind = torch.where(dmask, 0, kind)
+        elim += dmask.flatten(1).sum(-1, dtype=torch.int32)
+        colour, kind = gravity(colour, kind)
+        grid = draw_colour_grid(trandom.fold_in(sub_keys, t), cfg)
+        colour, kind = apply_refill(colour, kind, grid)
+        trips += active.to(torch.int32)
+    truncated = has_any_line(cfg, colour)
+    mask = effective_mask_settled(cfg, colour, kind)
+    return colour, elim, trips, truncated, mask
+
+
+def _kernel():
+    lib = cuda_build.load("cascade")
+    fn = lib.tmt_fused_cascade
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_cascade(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
+    """The cascade of ``cascade_reference``, as one CUDA kernel launch on a
+    CUDA device; on CPU tensors, ``cascade_reference`` itself."""
+    if colour.device.type == "cpu":
+        return cascade_reference(cfg, colour, sub_keys)
+    if colour.device.type != "cuda":
+        raise ValueError(f"fused_cascade: unsupported device {colour.device}")
+    if cfg.any_special:
+        raise ValueError("fused_cascade runs no-specials configs only")
+    B, R, C = colour.shape
+    if (R, C) != (cfg.num_rows, cfg.num_cols):
+        raise ValueError(f"board shape {(R, C)} does not match the config")
+    if R * C > 1024:
+        raise ValueError(f"fused_cascade takes at most 1024 cells, got {R * C}")
+    if colour.dtype != torch.int32 or not colour.is_contiguous():
+        raise ValueError("colour must be a contiguous int32 tensor")
+    if (
+        sub_keys.dtype != torch.int64
+        or sub_keys.shape != (B, 2)
+        or sub_keys.device != colour.device
+        or not sub_keys.is_contiguous()
+    ):
+        raise ValueError("sub_keys must be a contiguous int64[B, 2] tensor on colour's device")
+
+    dev = colour.device
+    out = torch.empty_like(colour)
+    elim = torch.empty(B, dtype=torch.int32, device=dev)
+    trips = torch.empty(B, dtype=torch.int32, device=dev)
+    truncated = torch.empty(B, dtype=torch.bool, device=dev)
+    mask = torch.empty(B, cfg.num_actions, dtype=torch.bool, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        err = fn(
+            colour.data_ptr(), sub_keys.data_ptr(), out.data_ptr(), elim.data_ptr(),
+            trips.data_ptr(), truncated.data_ptr(), mask.data_ptr(),
+            B, R, C, cfg.num_colours, cfg.max_cascades,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_cascade kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    return out, elim, trips, truncated, mask

@@ -1,0 +1,112 @@
+"""Batched threefry-2x32, word for word equal to ``jax.random``.
+
+The JAX package draws every random number of the game from per-board
+threefry keys (``jax.random.split`` / ``fold_in`` / ``randint`` /
+``permutation`` with ``jax_threefry_partitionable`` on, the default since
+JAX 0.5).  Threefry is pure 32-bit integer arithmetic, so these functions
+reproduce JAX's bits exactly; no ``torch.Generator`` is involved.
+
+A key is the pair of raw uint32 words JAX stores, held as int64 values in
+[0, 2**32) with the key words on the last dimension: ``keys[..., 2]``.
+All arithmetic runs in int64 and is masked back to 32 bits after each add
+and shift (torch's ``>>`` on int32 is arithmetic, not logical).  Every
+function is batched over the leading dimensions of ``keys``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def PRNGKey(seed: int, device) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for an int32 seed: int64[2]."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 31):
+        raise ValueError(f"seed must fit in int32, got {seed}")
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds, JAX's schedule; int64 in, int64 out."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & MASK32
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x0, x1
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: int64[..., 2] -> int64[..., num, 2]."""
+    counts = torch.arange(num, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32(
+        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
+    )
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: ``data`` is an int or an integer tensor that
+    broadcasts against ``keys[..., 0]``."""
+    if not torch.is_tensor(data):
+        data = torch.tensor(data, dtype=torch.int64, device=keys.device)
+    data = data.to(torch.int64) & MASK32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element: int64[..., *shape] of uint32 values."""
+    counts = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32(
+        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
+    )
+    return (b0 ^ b1).reshape(*keys.shape[:-1], *shape)
+
+
+def randint(
+    keys: torch.Tensor, shape: Sequence[int], minval: int, maxval: int
+) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``."""
+    span = maxval - minval
+    if span <= 0:
+        span = 1
+    if span > (1 << 31):
+        raise ValueError(f"span {span} too wide for int32 randint")
+    halves = split(keys)
+    hi = random_bits(halves[..., 0, :], shape)
+    lo = random_bits(halves[..., 1, :], shape)
+    # JAX's unsigned double-width remainder; products stay below 2**62 and
+    # are wrapped to 32 bits as the uint32 arithmetic would.
+    mult = (((1 << 16) % span) ** 2) % span
+    off = (((hi % span) * mult) & MASK32) + (lo % span)
+    off = (off & MASK32) % span
+    return (minval + off).to(torch.int32)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: int64[..., n].
+
+    JAX shuffles by sorting on fresh 32-bit keys, ceil(3 ln n / ln(2**32-1))
+    rounds (one round for every n below ~1600); the sort is stable.
+    """
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+    x = torch.arange(n, dtype=torch.int64, device=keys.device)
+    x = x.expand(*keys.shape[:-1], n)
+    for _ in range(rounds):
+        both = split(keys)
+        keys, sub = both[..., 0, :], both[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

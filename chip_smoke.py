@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
-  2. builds the CUDA kernel from tile_match_tpu_torch/csrc/;
-  3. holds the kernel against its plain PyTorch version on the card, bit
-     for bit in all five outputs, at 10x10x4 B=16384, 5x5x3 B=1000 and
-     20x20x6 B=1024, and times both at 10x10x4 B=16384;
-  4. replays the recorded JAX rollout (tests/data/torch_port_fixture_cfg1.npz)
-     through BatchedTileMatchEnv on the card, bit for bit in every field;
+  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/, one
+     nvcc each, all at once, and prints their registers and spills;
+  3. holds each kernel against its plain PyTorch version on the card, bit
+     for bit in every output — K1 fused_cascade at 10x10x4 B=16384, 5x5x3
+     B=1000 and 20x20x6 B=1024; K2 cascade_sp_chunk and K3 settled_mask_sp
+     at 10x10x4 B=16384, 6x6x3 B=1000 and 20x20x6 B=1024 on boards with
+     sprinkled specials — and times both versions at 10x10x4 B=16384;
+  4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1
+     and _cfg3.npz) through BatchedTileMatchEnv on the card, every field;
   5. runs config 1 (10x10, 4 colours, 30 moves, no specials) at batch 16384
-     for 64 auto-resetting steps under a random effective policy, checks the
-     kernel ran on every step, and times the steps.
+     for 32 auto-resetting steps under a random effective policy, checks
+     that K1 ran on every step, and times the steps;
+  6. runs config 3 (the same with cookie, both lasers and bomb), the
+     flagship, the same way: K2 and K3 on every step, board invariants,
+     truncation, and the cascade's telemetry.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -30,11 +36,24 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg1.npz")
-KERNEL_SOURCE = "tile_match_tpu_torch/csrc/cascade.cu"
-KERNEL_REPLACES = "tile_match_tpu/ops/pallas_cascade.py:1106"
+FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
+# name -> (module under tile_match_tpu_torch.ops, csrc source, TPU kernel replaced)
+KERNELS = {
+    "fused_cascade": ("cascade", "cascade", "tile_match_tpu/ops/pallas_cascade.py:1107"),
+    "cascade_sp_chunk": ("cascade_sp", "cascade_sp", "tile_match_tpu/ops/pallas_cascade.py:1434"),
+    "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
+}
+SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024))
 MAIN_BATCH = 16384
-MAIN_STEPS = 64
+MAIN_STEPS = 32
 SEED = 0
+# H100 SXM peaks (published datasheet): HBM bytes/s, and the
+# non-tensor float32 rate, used as the ceiling for the integer work
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# integer operations per refilled cell: 5 threefry-2x32 hashes of 20 rounds,
+# 3 operations a round
+OPS_PER_REFILL = 5 * 20 * 3
 
 
 def check(cond, msg: str) -> None:
@@ -42,14 +61,18 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def _no_specials(R, C, K, moves=30):
+def _config(R, C, K, moves=30, specials=(0, 0, 0, 0)):
+    """EnvConfig with the given (cookie, vertical laser, horizontal laser,
+    bomb) flags."""
     from tile_match_tpu_torch.config import EnvConfig
 
-    return EnvConfig.create(R, C, K, moves, colourless_specials=(), colour_specials=())
+    cookie, v_laser, h_laser, bomb = (bool(f) for f in specials)
+    return EnvConfig(R, C, K, moves, cookie=cookie, vertical_laser=v_laser,
+                     horizontal_laser=h_laser, bomb=bomb)
 
 
 def replay_fixture(device, path: str = FIXTURE) -> int:
-    """Replay the recorded JAX rollout through ``BatchedTileMatchEnv`` on
+    """Replay a recorded JAX rollout through ``BatchedTileMatchEnv`` on
     ``device``; raises on the first field that differs.  Returns the number
     of steps replayed."""
     import torch
@@ -60,7 +83,8 @@ def replay_fixture(device, path: str = FIXTURE) -> int:
 
     d = np.load(path)
     R, C, K, moves = (int(v) for v in d["config"])
-    env = BatchedTileMatchEnv(_no_specials(R, C, K, moves), d["colour"].shape[1], device)
+    specials = d["specials"] if "specials" in d.files else (0, 0, 0, 0)
+    env = BatchedTileMatchEnv(_config(R, C, K, moves, specials), d["colour"].shape[1], device)
 
     def compare(t, states, ts):
         got = state_to_numpy(states)
@@ -92,6 +116,29 @@ def _random_inputs(R, C, K, B, seed, device):
     return torch.as_tensor(colour, device=device), torch.as_tensor(keys, device=device)
 
 
+def sprinkled_inputs(R, C, K, B, seed, device):
+    """K2's inputs from numpy: uniform random boards with 0-5 specials each
+    (vertical and horizontal lasers, bombs, cookies — colour 0), threefry
+    keys, starting trip counts 0-2, eliminations 0-9 and 5% frozen boards.
+    Returns (colour, kind, sub_keys, trips, elim, frozen)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    colour = rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32)
+    kind = np.ones_like(colour)
+    n_sp = rng.integers(0, 6, size=B)
+    for b in range(B):
+        cells = rng.choice(R * C, size=n_sp[b], replace=False)
+        kinds = rng.choice(np.array([2, 3, 4, -1], np.int32), size=n_sp[b])
+        kind[b].reshape(-1)[cells] = kinds
+        colour[b].reshape(-1)[cells[kinds == -1]] = 0
+    keys = rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64)
+    trips = rng.integers(0, 3, size=B).astype(np.int32)
+    elim = rng.integers(0, 10, size=B).astype(np.int32)
+    frozen = (rng.random(B) < 0.05).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=device) for a in (colour, kind, keys, trips, elim, frozen))
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
 
@@ -107,9 +154,176 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: int, ops: int):
+    """(least time in ms the card could take, "bytes" or "operations"): the
+    bytes moved once over the memory rate against the operations over the
+    peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _assert_equal(got, want, names, tag) -> int:
+    import torch
+
+    err = 0
+    for name, g, w in zip(names, got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{tag}: {name} shape/dtype differs")
+        e = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        err = max(err, e)
+        check(e == 0, f"{tag}: kernel {name} differs from the plain version")
+    return err
+
+
+def check_kernels(device, smi):
+    """Phase 3: every kernel against its plain version, and timed.  Returns
+    {name: record} with max_abs_err, ms, plain_ms, bound_ms, bound_by."""
+    import torch
+
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+    from tile_match_tpu_torch.ops.effective import effective_mask_settled
+
+    rec = {}
+    # K1
+    names = ("colour", "elim", "trips", "truncated", "mask")
+    err = 0
+    for R, C, K, B in ((10, 10, 4, MAIN_BATCH), (5, 5, 3, 1000), (20, 20, 6, 1024)):
+        cfg = _config(R, C, K)
+        colour, sub = _random_inputs(R, C, K, B, seed=R * 1000 + B, device=device)
+        got = cascade.fused_cascade(cfg, colour, sub)
+        want = cascade.cascade_reference(cfg, colour, sub)
+        torch.cuda.synchronize()
+        err = max(err, _assert_equal(got, want, names, f"K1 {R}x{C}x{K} B={B}"))
+        print(f"phase 3: K1 {R}x{C}x{K} B={B} kernel == plain in {', '.join(names)}; "
+              f"mean trips {got[2].float().mean().item():.2f}")
+    cfg1 = _config(10, 10, 4)
+    colour, sub = _random_inputs(10, 10, 4, MAIN_BATCH, seed=7, device=device)
+    out = cascade.fused_cascade(cfg1, colour, sub)
+    ms = _time_ms(lambda: cascade.fused_cascade(cfg1, colour, sub), reps=20)
+    plain_ms = _time_ms(lambda: cascade.cascade_reference(cfg1, colour, sub), reps=2)
+    ops = OPS_PER_REFILL * int(out[1].sum()) + cfg1.flat_size * int(out[2].sum())
+    b_ms, b_by = bound(_nbytes(colour, sub, *out), ops)
+    rec["fused_cascade"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"phase 3 ok: K1 10x10x4 B={MAIN_BATCH} uniform random boards: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+
+    # K2 and K3, on boards with sprinkled specials
+    names = ("colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons")
+    err2 = err3 = 0
+    for R, C, K, B in SHAPES:
+        cfg = _config(R, C, K, 30, (1, 1, 1, 1))
+        inputs = sprinkled_inputs(R, C, K, B, seed=R * 100 + B, device=device)
+        got = cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=cfg.max_cascades)
+        want = cascade_sp.cascade_sp_reference(cfg, *inputs, limit=cfg.max_cascades)
+        torch.cuda.synchronize()
+        err2 = max(err2, _assert_equal(got, want, names, f"K2 {R}x{C}x{K} B={B}"))
+        m_got = mask_sp.settled_mask_sp(cfg, got[0], got[1])
+        m_want = effective_mask_settled(cfg, got[0], got[1])
+        torch.cuda.synchronize()
+        err3 = max(err3, _assert_equal((m_got,), (m_want,), ("mask",), f"K3 {R}x{C}x{K} B={B}"))
+        frozen = int(got[6].sum()) - int(inputs[5].sum())
+        print(f"phase 3: K2 {R}x{C}x{K} B={B} kernel == plain in {', '.join(names)}; "
+              f"mean trips {(got[2] - inputs[3]).float().mean().item():.2f}, {frozen} boards "
+              f"frozen; K3 kernel == plain on its output")
+    cfg3 = _config(10, 10, 4, 30, (1, 1, 1, 1))
+    inputs = sprinkled_inputs(10, 10, 4, MAIN_BATCH, seed=11, device=device)
+    T = cfg3.max_cascades
+    out = cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T)
+    ms = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T), reps=20)
+    plain_ms = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg3, *inputs, limit=T), reps=2)
+    refilled = int((out[3] - inputs[4]).sum())
+    ops = OPS_PER_REFILL * refilled + cfg3.flat_size * int((out[2] - inputs[3]).sum())
+    b_ms, b_by = bound(_nbytes(*inputs, *out), ops)
+    rec["cascade_sp_chunk"] = dict(max_abs_err=err2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"phase 3 ok: K2 10x10x4 B={MAIN_BATCH} sprinkled boards: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    colour, kind = out[0], out[1]
+    mask = mask_sp.settled_mask_sp(cfg3, colour, kind)
+    ms = _time_ms(lambda: mask_sp.settled_mask_sp(cfg3, colour, kind), reps=50)
+    plain_ms = _time_ms(lambda: effective_mask_settled(cfg3, colour, kind), reps=5)
+    b_ms, b_by = bound(_nbytes(colour, kind, mask), 24 * mask.numel())
+    rec["settled_mask_sp"] = dict(max_abs_err=err3, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"phase 3 ok: K3 10x10x4 B={MAIN_BATCH} K2's output boards: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    return rec
+
+
+def drive(cfg, device, smi, tag, modules):
+    """Run ``cfg`` at MAIN_BATCH for MAIN_STEPS auto-resetting steps through
+    BatchedTileMatchEnv under a random effective policy.  Every kernel
+    module in ``modules`` must launch on every step.  Returns the launch
+    count of each module over the run."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+    from tile_match_tpu_torch.ops.lines import has_any_line
+
+    env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    for m in modules.values():
+        m.launches = 0
+    states, ts = env.reset(trandom.PRNGKey(SEED, device))
+    engine.reset_cascade_stats()
+    torch.cuda.synchronize()
+    truncated = dones = trips = 0
+    step_ms = []
+    for t in range(MAIN_STEPS):
+        mask = ts.info.effective_actions
+        check(bool(mask.any(-1).all()), f"{tag} step {t}: a board has no effective action")
+        scores = torch.rand(mask.shape, generator=gen, device=device)
+        actions = torch.where(mask, scores, -1.0).argmax(-1)
+        check(bool(mask.gather(1, actions[:, None]).all()), f"{tag} step {t}: ineffective action")
+        before = {n: m.launches for n, m in modules.items()}
+        t0 = time.perf_counter()
+        states, ts = env.step(states, actions)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for n, m in modules.items():
+            check(m.launches > before[n], f"{tag} step {t}: kernel {n} was not launched")
+        check(bool((ts.reward > 0).all()), f"{tag} step {t}: an effective move scored 0")
+        truncated += int(ts.info.truncated.sum())
+        dones += int(ts.done.sum())
+        trips += int(ts.info.cascade_trips.sum())
+    launches = {n: m.launches for n, m in modules.items()}
+    board_steps = MAIN_BATCH * MAIN_STEPS
+    check(dones == MAIN_BATCH, f"{tag}: expected one auto-reset of every board, saw {dones} dones")
+    check(truncated * 10000 < board_steps, f"{tag}: {truncated} truncated board-steps of {board_steps}")
+    R, C = cfg.num_rows, cfg.num_cols
+    check(tuple(ts.obs_board.shape) == (MAIN_BATCH, 2, R, C), f"{tag}: obs_board shape")
+    check(not bool(has_any_line(cfg, states.colour).any()), f"{tag}: a settled board holds a line")
+    kinds = states.kind
+    check(bool(((kinds == -1) | ((kinds >= 1) & (kinds <= 4))).all()), f"{tag}: kind out of range")
+    check(bool(((states.colour == 0) == (kinds == -1)).all()),
+          f"{tag}: colour is not 0 exactly where kind is -1 (cookies)")
+    check(bool((states.colour <= cfg.num_colours).all()), f"{tag}: colour out of range")
+    total_ms = sum(step_ms)
+    print(f"{tag} ok: B={MAIN_BATCH} {MAIN_STEPS} steps, launches "
+          f"{', '.join(f'{n} {c}' for n, c in launches.items())}, {dones} dones, "
+          f"{truncated} truncated of {board_steps} board-steps")
+    print(f"{tag} time: {total_ms / MAIN_STEPS:.3f} ms/step (median "
+          f"{sorted(step_ms)[MAIN_STEPS // 2]:.3f} ms), "
+          f"{board_steps / (total_ms / 1e3):.1f} steps/s ({smi})")
+    stats = engine.cascade_stats
+    if stats["rounds"]:
+        full_trips = stats["full_trips"]
+        print(f"{tag} cascade: {stats['rounds'] / MAIN_STEPS:.2f} machinery rounds per step, "
+              f"{full_trips / MAIN_STEPS:.1f} full-machinery trips per step, "
+              f"{trips / MAIN_STEPS:.1f} trips per step, "
+              f"{1 - full_trips / max(trips, 1):.4f} of trips taken in the kernel, "
+              f"K2 freezes per reason bit {stats['reasons']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     # 1. the card
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -125,98 +339,49 @@ def main() -> int:
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from tile_match_tpu_torch import cuda_build
-    from tile_match_tpu_torch.ops import cascade
-    from tile_match_tpu_torch.ops.lines import has_any_line
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
 
-    # 2. build
+    # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    cuda_build.load("cascade")
-    ptxas = " ".join(
-        ln.strip() for ln in cuda_build.build_logs.get("cascade", "").splitlines()
-        if "registers" in ln or "spill" in ln
-    )
-    print(f"phase 2 ok: built {KERNEL_SOURCE} in {time.perf_counter() - t0:.1f} s; {ptxas}")
+    sources = [src for _, src, _ in KERNELS.values()]
+    cuda_build.build_all(sources)
+    for src in sources:
+        cuda_build.load(src)
+    print(f"phase 2 ok: built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    for src in sources:
+        ptxas = " ".join(
+            ln.strip() for ln in cuda_build.build_logs.get(src, "").splitlines()
+            if "registers" in ln or "spill" in ln
+        )
+        print(f"phase 2: {src}: {ptxas or 'library up to date, not rebuilt'}")
 
-    # 3. kernel against the plain version, bit for bit
-    names = ("colour", "elim", "trips", "truncated", "mask")
-    max_err = 0
-    for R, C, K, B in ((10, 10, 4, MAIN_BATCH), (5, 5, 3, 1000), (20, 20, 6, 1024)):
-        cfg = _no_specials(R, C, K)
-        colour, sub = _random_inputs(R, C, K, B, seed=R * 1000 + B, device=device)
-        got = cascade.fused_cascade(cfg, colour, sub)
-        want = cascade.cascade_reference(cfg, colour, sub)
-        torch.cuda.synchronize()
-        for name, g, w in zip(names, got, want):
-            check(g.shape == w.shape and g.dtype == w.dtype,
-                  f"{R}x{R}x{K} B={B}: {name} shape/dtype differs")
-            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"{R}x{C}x{K} B={B}: kernel {name} differs from the plain version")
-        print(f"phase 3: {R}x{C}x{K} B={B} kernel == plain in {', '.join(names)}; "
-              f"mean trips {got[2].float().mean().item():.2f}")
-    cfg1 = _no_specials(10, 10, 4)
-    colour, sub = _random_inputs(10, 10, 4, MAIN_BATCH, seed=7, device=device)
-    kernel_ms = _time_ms(lambda: cascade.fused_cascade(cfg1, colour, sub), reps=20)
-    plain_ms = _time_ms(lambda: cascade.cascade_reference(cfg1, colour, sub), reps=3)
-    print(f"phase 3 ok: 10x10x4 B={MAIN_BATCH} uniform random boards: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+    # 3. kernels against their plain versions
+    rec = check_kernels(device, smi)
 
-    # 4. the recorded JAX rollout, on the card
-    n = replay_fixture(device)
-    print(f"phase 4 ok: replayed {n} steps of the JAX fixture bit for bit")
+    # 4. the recorded JAX rollouts, on the card
+    for path in (FIXTURE, FIXTURE_CFG3):
+        n = replay_fixture(device, path)
+        print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
 
-    # 5. the main path
-    from tile_match_tpu_torch import random as trandom
-    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+    # 5-6. the main paths
+    launches = drive(_config(10, 10, 4), device, smi, "phase 5 (config 1)",
+                     {"fused_cascade": cascade})
+    launches.update(drive(_config(10, 10, 4, 30, (1, 1, 1, 1)), device, smi, "phase 6 (config 3)",
+                          {"cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}))
 
-    env = BatchedTileMatchEnv(cfg1, MAIN_BATCH, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
-    cascade.launches = 0
-    states, ts = env.reset(trandom.PRNGKey(SEED, device))
-    torch.cuda.synchronize()
-    truncated = 0
-    dones = 0
-    step_ms = []
-    for t in range(MAIN_STEPS):
-        mask = ts.info.effective_actions
-        check(bool(mask.any(-1).all()), f"step {t}: a board has no effective action")
-        scores = torch.rand(mask.shape, generator=gen, device=device)
-        actions = torch.where(mask, scores, -1.0).argmax(-1)
-        check(bool(mask.gather(1, actions[:, None]).all()), f"step {t}: ineffective action")
-        before = cascade.launches
-        t0 = time.perf_counter()
-        states, ts = env.step(states, actions)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        check(cascade.launches > before, f"step {t}: the cascade kernel was not launched")
-        check(bool((ts.reward > 0).all()), f"step {t}: an effective move scored 0")
-        truncated += int(ts.info.truncated.sum())
-        dones += int(ts.done.sum())
-    launches = cascade.launches
-    board_steps = MAIN_BATCH * MAIN_STEPS
-    check(dones == 2 * MAIN_BATCH, f"expected two auto-resets of every board, saw {dones} dones")
-    check(truncated * 10000 < board_steps, f"{truncated} truncated board-steps of {board_steps}")
-    check(tuple(ts.obs_board.shape) == (MAIN_BATCH, 2, 10, 10), "obs_board shape")
-    check(bool(((states.colour >= 1) & (states.colour <= 4)).all()), "colour out of range")
-    check(not bool(has_any_line(cfg1, states.colour).any()), "a settled board holds a line")
-    total_ms = sum(step_ms)
-    print(f"phase 5 ok: config 1 B={MAIN_BATCH} {MAIN_STEPS} steps, {launches} kernel "
-          f"launches, {dones} dones, {truncated} truncated of {board_steps} board-steps")
-    print(f"phase 5 time: {total_ms / MAIN_STEPS:.3f} ms/step (median "
-          f"{sorted(step_ms)[MAIN_STEPS // 2]:.3f} ms), "
-          f"{board_steps / (total_ms / 1e3):.1f} steps/s ({smi})")
-
-    print(json.dumps({"kernels": [{
-        "name": "fused_cascade",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"tile_match_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            **rec[name],
+            "library_ms": None,
+        }
+        for name, (_, src, replaces) in KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -20,11 +20,15 @@ from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv, random_effective
 from tile_match_tpu_torch.ops import cascade as tcas
+from tile_match_tpu_torch.ops import cascade_sp as tsp
+from tile_match_tpu_torch.ops import mask_sp as tmask
+from tile_match_tpu_torch.ops.effective import effective_mask_settled
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ["colour", "elim", "trips", "trunc", "mask"]
+SP_NAMES = ["colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons"]
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -99,3 +103,91 @@ def test_fixture_replays_on_card(cuda_device):
     import chip_smoke
 
     assert chip_smoke.replay_fixture(cuda_device) == 40
+
+
+def _specials(R, C, K, moves=30, **kw):
+    return EnvConfig.create(R, C, K, moves, **kw)
+
+
+def _chip_smoke():
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    return chip_smoke
+
+
+SP_SHAPES = [(10, 10, 4, 2048, 64), (6, 6, 3, 130, 64), (8, 8, 4, 300, 2), (20, 20, 6, 256, 64),
+             (32, 32, 5, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,limit", SP_SHAPES)
+def test_cascade_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit):
+    cfg = _specials(R, C, K)
+    inputs = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=R * B + limit, device=cuda_device)
+    before = tsp.launches
+    got = tsp.cascade_sp_chunk(cfg, *inputs, limit=limit)
+    torch.cuda.synchronize()
+    assert tsp.launches == before + 1
+    want = tsp.cascade_sp_reference(cfg, *inputs, limit=limit)
+    for g, w, name in zip(got, want, SP_NAMES):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,limit", SP_SHAPES)
+def test_settled_mask_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit):
+    cfg = _specials(R, C, K)
+    colour, kind = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=B, device=cuda_device)[:2]
+    before = tmask.launches
+    got = tmask.settled_mask_sp(cfg, colour, kind)
+    torch.cuda.synchronize()
+    assert tmask.launches == before + 1
+    assert torch.equal(got, effective_mask_settled(cfg, colour, kind))
+
+
+@pytest.mark.cuda
+def test_specials_kernels_refuse_bad_input(cuda_device):
+    cfg = _specials(6, 6, 3)
+    colour, kind, keys, trips, elim, frozen = _chip_smoke().sprinkled_inputs(
+        6, 6, 3, 4, seed=0, device=cuda_device
+    )
+    with pytest.raises(ValueError):
+        tsp.cascade_sp_chunk(cfg, colour.long(), kind, keys, trips, elim, frozen, limit=8)
+    with pytest.raises(ValueError):
+        tsp.cascade_sp_chunk(cfg, colour, kind, keys[:3], trips, elim, frozen, limit=8)
+    with pytest.raises(NotImplementedError):
+        tsp.cascade_sp_chunk(_specials(6, 6, 3, colour_specials=("vertical_laser",)),
+                             colour, kind, keys, trips, elim, frozen, limit=8)
+    with pytest.raises(ValueError):
+        tmask.settled_mask_sp(cfg, colour, kind.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,moves,steps", [(10, 10, 4, 64, 5, 7), (20, 20, 6, 16, 2, 3)],
+                         ids=["config3", "config4-20x20"])
+def test_specials_env_on_card_equals_env_on_cpu(cuda_device, R, C, K, B, moves, steps):
+    cfg = _specials(R, C, K, moves=moves)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        env = BatchedTileMatchEnv(cfg, B, dev)
+        key = trandom.PRNGKey(5, dev)
+        states, ts = env.reset(key)
+        rows = []
+        for t in range(steps):  # crosses the reset after the last move
+            key, ka = trandom.split(key).unbind(0)
+            states, ts = env.step(states, random_effective(ka, ts))
+            rows.append([states.colour, states.kind, states.key, ts.reward,
+                         ts.info.effective_actions, ts.info.cascade_trips,
+                         ts.info.num_new_specials, ts.info.num_specials_activated,
+                         ts.info.truncated, ts.done])
+        out[str(dev)] = [[x.cpu() for x in row] for row in rows]
+    for a, b in zip(*out.values()):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cfg3_fixture_replays_on_card(cuda_device):
+    smoke = _chip_smoke()
+    assert smoke.replay_fixture(cuda_device, smoke.FIXTURE_CFG3) == 35

@@ -3,7 +3,8 @@ PyTorch, with its TPU kernels rewritten as CUDA kernels for Hopper.
 
 Same configs, boards and threefry keys give the same outputs as the JAX
 package, bit for bit.  This package imports no JAX.  Ported so far: the
-no-specials batched step (configs with every special disabled).
+batched step of every bench config — no specials, and specials with the
+bomb enabled — with its three TPU kernels as CUDA kernels.
 """
 
 from .config import EnvConfig, TILE_TYPES

@@ -31,6 +31,15 @@ TILE_TYPES = {
     "cookie": KIND_COOKIE,
 }
 
+# Match classification codes (`board.py:269-327`): what a classified match
+# creates.  A cookie match creates a cookie tile (KIND_COOKIE).
+MATCH_NONE = 0
+MATCH_NORMAL = 1
+MATCH_V_LASER = 2
+MATCH_H_LASER = 3
+MATCH_BOMB = 4
+MATCH_COOKIE = 5
+
 _COLOURLESS_SPECIAL_NAMES = ("cookie",)
 _COLOUR_SPECIAL_NAMES = ("vertical_laser", "horizontal_laser", "bomb")
 

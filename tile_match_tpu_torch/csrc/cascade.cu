@@ -16,9 +16,11 @@
 //   4. delete that union and count it;
 //   5. stable gravity per column (empties to the top);
 //   6. refill the empties with randint(fold_in(sub, t), (R, C), 1, K + 1),
-//      JAX's partitionable threefry-2x32 computed per cell in-kernel.
+//      JAX's partitionable threefry-2x32 computed per cell in-kernel
+//      (csrc/threefry.cuh).
 // Then the settled effective-action mask: 8 colour stencils per swap, one
-// thread per action, in action-table order (down-swaps, then right-swaps).
+// thread per action, in action-table order (down-swaps, then right-swaps);
+// the stencils are csrc/mask.cuh, shared with the specials mask kernel.
 //
 // What bounds it on the card: not memory — a 10x10 board is 400 bytes in and
 // about 600 bytes out.  Each trip is a handful of short scans over shared
@@ -36,53 +38,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mask.cuh"
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kNoReach = 1 << 20;
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds, JAX's key schedule; (x0, x1) in and out.
-__device__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i & 1][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
-
-// Colour of flat cell `cell` in jax.random.randint(fold_in(sub, t), (R, C),
-// 1, K + 1): split the folded key in two, draw 32 bits from each at the
-// cell's counter, and take JAX's unsigned double-width remainder.
-__device__ int refill_colour(uint32_t s0, uint32_t s1, uint32_t t, uint32_t cell,
-                             uint32_t K, uint32_t mult) {
-  uint32_t f0 = 0, f1 = t;
-  threefry2x32(s0, s1, f0, f1);  // fold_in
-  uint32_t a0 = 0, a1 = 0;
-  threefry2x32(f0, f1, a0, a1);  // split: first key
-  uint32_t b0 = 0, b1 = 1;
-  threefry2x32(f0, f1, b0, b1);  // split: second key
-  uint32_t h0 = 0, h1 = cell;
-  threefry2x32(a0, a1, h0, h1);
-  uint32_t l0 = 0, l1 = cell;
-  threefry2x32(b0, b1, l0, l1);
-  const uint32_t hi = h0 ^ h1;
-  const uint32_t lo = l0 ^ l1;
-  const uint32_t off = ((hi % K) * mult + lo % K) % K;
-  return 1 + static_cast<int>(off);
-}
 
 __global__ void cascade_kernel(const int* __restrict__ colour_in,
                                const long long* __restrict__ sub_keys,
@@ -207,7 +168,7 @@ __global__ void cascade_kernel(const int* __restrict__ colour_in,
     if (live) {
       const int w = y[i];
       x[i] = w != 0 ? w
-                    : refill_colour(s0, s1, static_cast<uint32_t>(t),
+                    : tmt::refill_colour(s0, s1, static_cast<uint32_t>(t),
                                     static_cast<uint32_t>(i),
                                     static_cast<uint32_t>(K), mult);
     }
@@ -222,39 +183,14 @@ __global__ void cascade_kernel(const int* __restrict__ colour_in,
     trunc_out[b] = lined;
   }
 
-  // settled effective-action mask; out-of-board reads are -1 (never equal)
+  // settled effective-action mask (csrc/mask.cuh); kind is all-normal
   const int A = 2 * n - R - C;
-  const int n_down = C * (R - 1);
   auto at = [&](int rr, int cc) -> int {
     return (rr >= 0 && rr < R && cc >= 0 && cc < C) ? x[rr * C + cc] : -1;
   };
+  auto normal = [](int, int) -> int { return 1; };
   for (int a = i; a < A; a += blockDim.x) {
-    bool m;
-    if (a < n_down) {
-      const int ar = a / C, ac = a % C;
-      const int A_ = at(ar, ac), B_ = at(ar + 1, ac);
-      m = (at(ar, ac - 2) == B_ && at(ar, ac - 1) == B_) ||
-          (at(ar, ac - 1) == B_ && at(ar, ac + 1) == B_) ||
-          (at(ar, ac + 1) == B_ && at(ar, ac + 2) == B_) ||
-          (at(ar - 2, ac) == B_ && at(ar - 1, ac) == B_) ||
-          (at(ar + 1, ac - 2) == A_ && at(ar + 1, ac - 1) == A_) ||
-          (at(ar + 1, ac - 1) == A_ && at(ar + 1, ac + 1) == A_) ||
-          (at(ar + 1, ac + 1) == A_ && at(ar + 1, ac + 2) == A_) ||
-          (at(ar + 2, ac) == A_ && at(ar + 3, ac) == A_);
-    } else {
-      const int j = a - n_down;
-      const int ar = j / (C - 1), ac = j % (C - 1);
-      const int A_ = at(ar, ac), B_ = at(ar, ac + 1);
-      m = (at(ar - 2, ac) == B_ && at(ar - 1, ac) == B_) ||
-          (at(ar - 1, ac) == B_ && at(ar + 1, ac) == B_) ||
-          (at(ar + 1, ac) == B_ && at(ar + 2, ac) == B_) ||
-          (at(ar, ac - 2) == B_ && at(ar, ac - 1) == B_) ||
-          (at(ar - 2, ac + 1) == A_ && at(ar - 1, ac + 1) == A_) ||
-          (at(ar - 1, ac + 1) == A_ && at(ar + 1, ac + 1) == A_) ||
-          (at(ar + 1, ac + 1) == A_ && at(ar + 2, ac + 1) == A_) ||
-          (at(ar, ac + 2) == A_ && at(ar, ac + 3) == A_);
-    }
-    mask_out[static_cast<size_t>(b) * A + a] = m;
+    mask_out[static_cast<size_t>(b) * A + a] = tmt::settled_action(a, R, C, at, normal, false);
   }
 }
 
@@ -273,8 +209,7 @@ extern "C" int tmt_fused_cascade(const int* colour_in, const long long* sub_keys
   if (n > 1024 || R < 1 || C < 1 || K < 1 || K > 65535) return cudaErrorInvalidValue;
   const int threads = ((n + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(n) * (6 * sizeof(int) + 1);
-  const uint32_t m = 65536u % static_cast<uint32_t>(K);
-  const uint32_t mult = (m * m) % static_cast<uint32_t>(K);
+  const uint32_t mult = tmt::randint_mult(static_cast<uint32_t>(K));
   cascade_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       colour_in, sub_keys, colour_out, elim, trips, truncated, mask, R, C, K,
       max_cascades, mult);

@@ -1,0 +1,58 @@
+// JAX's partitionable threefry-2x32, per cell: the refill colours of the
+// cascades, equal bit for bit to tile_match_tpu_torch/random.py (and to
+// jax.random with jax_threefry_partitionable on).
+#pragma once
+
+#include "block.cuh"
+
+namespace tmt {
+
+TMT_DEV uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+// Threefry-2x32, 20 rounds, JAX's key schedule; (x0, x1) in and out.
+TMT_DEV void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i & 1][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
+// JAX's randint multiplier for span K: (2^16 mod K)^2 mod K.
+TMT_HOST_DEV uint32_t randint_mult(uint32_t K) {
+  const uint32_t m = 65536u % K;
+  return (m * m) % K;
+}
+
+// Colour of flat cell `cell` in jax.random.randint(fold_in(sub, t), (R, C),
+// 1, K + 1): split the folded key in two, draw 32 bits from each at the
+// cell's counter, and take JAX's unsigned double-width remainder.
+TMT_DEV int refill_colour(uint32_t s0, uint32_t s1, uint32_t t, uint32_t cell, uint32_t K,
+                          uint32_t mult) {
+  uint32_t f0 = 0, f1 = t;
+  threefry2x32(s0, s1, f0, f1);  // fold_in
+  uint32_t a0 = 0, a1 = 0;
+  threefry2x32(f0, f1, a0, a1);  // split: first key
+  uint32_t b0 = 0, b1 = 1;
+  threefry2x32(f0, f1, b0, b1);  // split: second key
+  uint32_t h0 = 0, h1 = cell;
+  threefry2x32(a0, a1, h0, h1);
+  uint32_t l0 = 0, l1 = cell;
+  threefry2x32(b0, b1, l0, l1);
+  const uint32_t hi = h0 ^ h1;
+  const uint32_t lo = l0 ^ l1;
+  const uint32_t off = ((hi % K) * mult + lo % K) % K;
+  return 1 + static_cast<int>(off);
+}
+
+}  // namespace tmt

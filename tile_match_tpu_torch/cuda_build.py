@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` — the hash is of the
-source and the flags, so an edited source is rebuilt — and is loaded with
-``ctypes``.  Nothing here runs at import time: the CPU-only test machines
-import every module but never build.
+source, of every ``csrc/*.cuh`` header it includes (directly or through
+another header) and of the flags, so an edited source or shared header is
+rebuilt — and is loaded with ``ctypes``.  ``build_all`` compiles several
+sources at once, one ``nvcc`` each.  Nothing here runs at import time: the
+CPU-only test machines import every module but never build.
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -23,7 +27,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(CSRC),
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # compiler output (ptxas resource use) per source
@@ -40,11 +46,34 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header."""
+    todo = [CSRC / f"{name}.cu"]
+    seen: list[Path] = []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).exists():
+                todo.append(CSRC / inc)
+    return seen
+
+
+def digest(name: str) -> str:
+    """Hash of the flags, ``csrc/<name>.cu`` and every header it includes."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(sources(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,3 +97,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def build_all(names) -> None:
+    """Build several sources at once, one ``nvcc`` process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for _ in pool.map(build, names):
+            pass

@@ -1,5 +1,5 @@
 """The core engine on batches of boards (counterpart of
-``tile_match_tpu.engine``, no-specials configs).
+``tile_match_tpu.engine``).
 
 ``Board.move`` / ``Board.generate_board`` and ``TileMatchEnv.step/reset`` of
 the original game (`board.py:95-112, 330-395`, `tile_match_env.py:84-112`)
@@ -10,8 +10,15 @@ splits keys, draws and updates only the boards still in the loop, so a board
 that has left it consumes no random numbers and its state is exactly what
 the per-board loop would leave.
 
-The specials machinery (classify, resolve, activate, combination) is not
-ported yet: configs with any special enabled raise ``NotImplementedError``.
+The cascade of a move runs on the kernels: without specials K1
+(``ops.cascade.fused_cascade``), which also hands back the settled mask;
+with specials, after the combination branch, ``fused_specials_cascade`` —
+K2 (``ops.cascade_sp.cascade_sp_chunk``) takes every board's simple trips,
+the full machinery (detect, classify, resolve, gravity, refill:
+``specials_cascade_trip_grid``) the others — and the settled mask is K3
+(``ops.mask_sp.settled_mask_sp``).  On CUDA tensors these are the CUDA
+kernels, on CPU tensors their plain versions.  Specials configs without
+bombs raise ``NotImplementedError``: K2's no-bomb case table is not ported.
 """
 
 from __future__ import annotations
@@ -23,18 +30,23 @@ import torch
 
 from . import random as trandom
 from .config import EnvConfig
-from .ops.board_ops import apply_shuffle, draw_colour_grid, swap_cells
+from .ops.board_ops import apply_refill, apply_shuffle, draw_colour_grid, gravity, swap_cells
 from .ops.cascade import fused_cascade
+from .ops.cascade_sp import REASON_MULTI, cascade_sp_chunk
+from .ops.classify import process_colour_lines
+from .ops.combination import combination_match, is_combination
 from .ops.effective import effective_mask_settled
-from .ops.lines import has_any_line, run_member_mask
+from .ops.lines import get_colour_lines, has_any_line, run_member_mask
+from .ops.mask_sp import settled_mask_sp
+from .ops.resolve import resolve_colour_matches
 from .state import EnvState, StepInfo, action_table
 
 
 def _check_supported(cfg: EnvConfig) -> None:
-    if cfg.any_special:
+    if cfg.any_special and not cfg.bomb:
         raise NotImplementedError(
-            "special tiles are not ported yet (ROADMAP Queue 1 item 7, "
-            "specials machinery); use a config with no specials"
+            "specials configs without bombs are not ported (ROADMAP Queue 2: "
+            "the kernel's no-bomb case table); enable the bomb"
         )
     if cfg.debug_checks:
         raise NotImplementedError(
@@ -125,43 +137,187 @@ def generate_board(cfg: EnvConfig, keys):
     return colour, kind, key, mask, gave_up
 
 
+def specials_cascade_trip_grid(cfg: EnvConfig, colour, kind, grid):
+    """One full cascade trip (`board.py:369-376`) with its refill grid given:
+    detect -> classify -> resolve -> gravity -> refill(grid).  Returns
+    (colour, kind, elim, activated, new, ovf), the counts int32[B]."""
+    lines = get_colour_lines(cfg, colour)
+    matches = process_colour_lines(cfg, colour, lines)
+    colour, kind, act_d, new_d, r_ovf = resolve_colour_matches(cfg, colour, kind, matches)
+    elim_d = cfg.flat_size - kind.flatten(1).count_nonzero(-1).to(torch.int32)
+    colour, kind = gravity(colour, kind)
+    colour, kind = apply_refill(colour, kind, grid)
+    return colour, kind, elim_d, act_d, new_d, matches.ovf | r_ovf
+
+
+def specials_cascade_trip(cfg: EnvConfig, colour, kind, sub, it):
+    """``specials_cascade_trip_grid`` refilling trip ``it`` (int or int[B])
+    from ``draw_colour_grid(fold_in(sub, it))``."""
+    grid = draw_colour_grid(trandom.fold_in(sub, it), cfg)
+    return specials_cascade_trip_grid(cfg, colour, kind, grid)
+
+
+# Telemetry of ``fused_specials_cascade``, summed over its calls since the
+# last ``reset_cascade_stats()``: loop rounds, trips run by the full
+# machinery, and for each freeze reason bit of K2 (``ops.cascade_sp.
+# REASON_*``, bit i at index i) the number of freezes it took part in.
+# Host integers, so that the counts hold across devices.
+cascade_stats: dict = {}
+_N_REASONS = REASON_MULTI.bit_length()
+
+
+def reset_cascade_stats() -> None:
+    cascade_stats.update(rounds=0, full_trips=0, reasons=[0] * _N_REASONS)
+
+
+reset_cascade_stats()
+
+
+def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
+    """The cascade of a move with specials, for a batch: colour, kind
+    int32[B, R, C] (no empty cell), sub_keys int64[B, 2].
+
+    Each round launches K2 (``cascade_sp_chunk``) on every board still
+    cascading — it runs each board's simple trips and freezes a board whose
+    next trip is not simple — then runs one full trip
+    (``specials_cascade_trip``) on every frozen board.  Every round moves
+    each cascading board at least one trip forward — K2 runs a simple trip
+    or freezes the board, and a frozen board takes its full trip — so the
+    loop ends within ``max_cascades`` rounds.
+
+    Returns (colour, kind, elim, activated, new, trips, truncated) and adds
+    to ``cascade_stats``.
+    """
+    B = colour.shape[0]
+    T = cfg.max_cascades
+    dev = colour.device
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    trips, elim, act, new = zero.clone(), zero.clone(), zero.clone(), zero.clone()
+    trunc = torch.zeros(B, dtype=torch.bool, device=dev)
+    shifts = torch.arange(_N_REASONS, dtype=torch.int32, device=dev)
+    active = has_any_line(cfg, colour)
+    while True:
+        idx = active.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        zn = torch.zeros(idx.numel(), dtype=torch.int32, device=dev)
+        c2, k2, t2, e2, n2, a2, fz, act2, r2 = cascade_sp_chunk(
+            cfg, colour[idx].contiguous(), kind[idx].contiguous(),
+            sub_keys[idx].contiguous(), trips[idx].contiguous(), zn, zn, limit=T,
+        )
+        colour = colour.index_copy(0, idx, c2)
+        kind = kind.index_copy(0, idx, k2)
+        trips = trips.index_copy(0, idx, t2)
+        elim.index_add_(0, idx, e2)
+        new.index_add_(0, idx, n2)
+        act.index_add_(0, idx, a2)
+        still = act2 & (t2 < T)
+
+        fidx = idx[fz > 0]
+        if fidx.numel():
+            c3, k3, e3, a3, n3, o3 = specials_cascade_trip(
+                cfg, colour[fidx], kind[fidx], sub_keys[fidx], trips[fidx]
+            )
+            colour = colour.index_copy(0, fidx, c3)
+            kind = kind.index_copy(0, fidx, k3)
+            trips.index_add_(0, fidx, torch.ones_like(e3))
+            elim.index_add_(0, fidx, e3)
+            act.index_add_(0, fidx, a3)
+            new.index_add_(0, fidx, n3)
+            trunc[fidx] |= o3
+            still[fz > 0] = has_any_line(cfg, c3) & (trips[fidx] < T)
+        active = torch.zeros_like(active).index_copy_(0, idx, still)
+        cascade_stats["rounds"] += 1
+        cascade_stats["full_trips"] += fidx.numel()
+        froze = ((r2[:, None] >> shifts) & 1).sum(0).tolist()
+        cascade_stats["reasons"] = [a + b for a, b in zip(cascade_stats["reasons"], froze)]
+    return colour, kind, elim, act, new, trips, trunc | has_any_line(cfg, colour)
+
+
+def combination_branch(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
+    """The combination match of the boards where ``comb`` (`board.py:
+    357-366`): the match, gravity, and a refill from ``key, k = split(key)``.
+    Returns (colour, kind, key, elim, activated, ovf); other boards come
+    back unchanged with zero counts."""
+    B = colour.shape[0]
+    dev = colour.device
+    elim = torch.zeros(B, dtype=torch.int32, device=dev)
+    act = torch.zeros_like(elim)
+    ovf = torch.zeros(B, dtype=torch.bool, device=dev)
+    idx = comb.nonzero()[:, 0]
+    if idx.numel() == 0:
+        return colour, kind, key, elim, act, ovf
+    c2, k2, a, o = combination_match(cfg, colour[idx], kind[idx], coord1[idx], coord2[idx])
+    e = cfg.flat_size - k2.flatten(1).count_nonzero(-1).to(torch.int32)
+    c2, k2 = gravity(c2, k2)
+    both = trandom.split(key[idx])
+    c2, k2 = apply_refill(c2, k2, draw_colour_grid(both[:, 1], cfg))
+    return (
+        colour.index_copy(0, idx, c2), kind.index_copy(0, idx, k2),
+        key.index_copy(0, idx, both[:, 0]),
+        elim.index_copy(0, idx, e), act.index_copy(0, idx, a), ovf.index_copy(0, idx, o),
+    )
+
+
 def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask):
-    """``Board.move`` (`board.py:330-395`) for no-specials boards.
+    """``Board.move`` (`board.py:330-395`) for a batch.
 
     Boards where ``eff`` is False are no-ops: board, key and ``cur_mask``
-    come back unchanged.  An effective move swaps, does ``key, sub =
-    split(key)`` once, runs the cascade (``fused_cascade``: the CUDA kernel
-    on a card, the plain version on the CPU) and the playability loop.
+    come back unchanged.  An effective move swaps; with specials, a swap of
+    two specials or of a cookie runs the combination branch; then
+    ``key, sub = split(key)``, the cascade and the playability loop.
+
+    The cascade is ``fused_cascade`` without specials and
+    ``fused_specials_cascade`` then ``settled_mask_sp`` with them.
 
     Returns (colour, kind, key, eliminations, is_comb, new_specials,
     activated, shuffled, post_mask, truncated, trips).
     """
     _check_supported(cfg)
     B = colour.shape[0]
+    dev = colour.device
     e1, e3 = eff[:, None], eff[:, None, None]
-    sw_colour, _ = swap_cells(colour, kind, coord1, coord2)
+    sw_colour, sw_kind = swap_cells(colour, kind, coord1, coord2)
     moved = torch.where(e3, sw_colour, colour)
-    both = trandom.split(key)
-    key_moved, sub = both[:, 0], both[:, 1].contiguous()
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    false = torch.zeros(B, dtype=torch.bool, device=dev)
 
-    # Non-effective boards go through unchanged and line-free: 0 trips.
-    c_colour, elim, trips, trunc, kmask = fused_cascade(cfg, moved, sub)
+    # Non-effective boards go through the cascade unchanged and line-free:
+    # 0 trips, and their outputs are discarded.
+    if cfg.any_special:
+        moved_kind = torch.where(e3, sw_kind, kind)
+        comb = eff & is_combination(moved_kind, coord1, coord2)
+        moved, moved_kind, key_c, comb_elim, comb_act, comb_ovf = combination_branch(
+            cfg, moved, moved_kind, key, coord1, coord2, comb
+        )
+        both = trandom.split(key_c)
+        key_moved, sub = both[:, 0], both[:, 1].contiguous()
+        c_colour, c_kind, elim, act, new, trips, trunc = fused_specials_cascade(
+            cfg, moved, moved_kind, sub
+        )
+        kmask = settled_mask_sp(cfg, c_colour, c_kind)
+        # new specials filled holes: they count as eliminations (`board.py:378`)
+        elim = comb_elim + elim + new
+        act = comb_act + act
+        trunc = trunc | comb_ovf
+    else:
+        both = trandom.split(key)
+        key_moved, sub = both[:, 0], both[:, 1].contiguous()
+        c_colour, elim, trips, trunc, kmask = fused_cascade(cfg, moved, sub)
+        c_kind = kind  # all-normal before and after the cascade
+        comb, new, act = false, zero, zero
 
-    # no specials: kind is all-normal before and after the cascade
     p_colour, p_kind, p_key, p_shuffled, p_mask, p_gave_up = make_playable(
-        cfg, c_colour, kind, key_moved,
-        torch.zeros(B, dtype=torch.bool, device=colour.device),
-        mask0=kmask, skip=~eff,
+        cfg, c_colour, c_kind, key_moved, false, mask0=kmask, skip=~eff,
     )
-    zero = torch.zeros(B, dtype=torch.int32, device=colour.device)
     return (
         torch.where(e3, p_colour, colour),
         torch.where(e3, p_kind, kind),
         torch.where(e1, p_key, key),
         torch.where(eff, elim, zero),
-        torch.zeros(B, dtype=torch.bool, device=colour.device),
-        zero,
-        zero,
+        comb,
+        torch.where(eff, new, zero),
+        torch.where(eff, act, zero),
         eff & p_shuffled,
         torch.where(e1, p_mask, cur_mask),
         eff & (trunc | p_gave_up),

@@ -2,8 +2,9 @@
 ``tile_match_tpu.envs.batched``).
 
 A batch of boards stepped together.  Every tensor lives on the device the
-caller chose: on a CUDA device the step's cascade is the CUDA kernel, on the
-CPU its plain PyTorch version, through the same code.
+caller chose: on a CUDA device the step's kernels (the cascade, and with
+specials the settled mask) are the CUDA kernels, on the CPU their plain
+PyTorch versions, through the same code.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from .. import random as trandom
 from ..config import EnvConfig
 from ..engine import generate_board, reset
 from ..ops.effective import effective_mask_settled
+from ..ops.mask_sp import settled_mask_sp
 from ..state import EnvState, StepInfo
 from .fused import batched_step_fused
 
@@ -60,7 +62,8 @@ def batched_step(
     recomputing the current mask.
     """
     if eff_mask is None:
-        eff_mask = effective_mask_settled(cfg, states.colour, states.kind)
+        mask_fn = settled_mask_sp if cfg.any_special else effective_mask_settled
+        eff_mask = mask_fn(cfg, states.colour, states.kind)
     next_states, rewards, dones, infos = batched_step_fused(
         cfg, states, actions, eff_mask, compute_post_mask=not auto_reset
     )

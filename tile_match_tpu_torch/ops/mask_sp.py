@@ -1,0 +1,59 @@
+"""The settled effective-action mask of boards with specials: its CUDA
+kernel's wrapper (counterpart of ``settled_mask_sp`` in
+``tile_match_tpu.ops.pallas_cascade``).  The plain version is
+``ops.effective.effective_mask_settled``.
+
+``settled_mask_sp`` launches the CUDA kernel (``csrc/mask_sp.cu``) on CUDA
+tensors and runs ``effective_mask_settled`` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_build
+from ..config import EnvConfig
+from .effective import effective_mask_settled
+
+# Kernel launches so far; a run resets it to see which kernels it went through.
+launches = 0
+
+
+def _kernel():
+    lib = cuda_build.load("mask_sp")
+    fn = lib.tmt_settled_mask_sp
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def settled_mask_sp(cfg: EnvConfig, colour: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """bool[B, A]: ``effective_mask_settled`` of boards with specials, as
+    one CUDA kernel launch on a CUDA device."""
+    if colour.device.type == "cpu":
+        return effective_mask_settled(cfg, colour, kind)
+    if colour.device.type != "cuda":
+        raise ValueError(f"settled_mask_sp: unsupported device {colour.device}")
+    B, R, C = colour.shape
+    if (R, C) != (cfg.num_rows, cfg.num_cols):
+        raise ValueError(f"board shape {(R, C)} does not match the config")
+    for name, t in (("colour", colour), ("kind", kind)):
+        if (
+            t.dtype != torch.int32 or tuple(t.shape) != (B, R, C)
+            or t.device != colour.device or not t.is_contiguous()
+        ):
+            raise ValueError(f"{name} must be a contiguous int32[B, R, C] tensor on {colour.device}")
+    mask = torch.empty(B, cfg.num_actions, dtype=torch.bool, device=colour.device)
+    fn = _kernel()
+    with torch.cuda.device(colour.device):
+        err = fn(
+            colour.data_ptr(), kind.data_ptr(), mask.data_ptr(), B, R, C,
+            int(cfg.any_special), torch.cuda.current_stream(colour.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"settled_mask_sp kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    return mask

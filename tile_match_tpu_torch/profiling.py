@@ -1,0 +1,162 @@
+"""Profile the PyTorch port's batched step on one CUDA card (counterpart of
+``tile_match_tpu.profiling``, on ``torch.profiler``).
+
+    python -m tile_match_tpu_torch.profiling [--config 3] [--batch 16384] [--steps 10]
+
+Builds config ``--config`` of ``bench.py`` (0-4), resets a batch, runs 4
+warm-up steps through ``BatchedTileMatchEnv`` under a random effective
+policy, then ``--steps`` steps under ``torch.profiler`` (no auto-reset falls
+in the window).  Prints, for the window: wall time per step, device busy
+time and share (the union of kernel intervals on the card), kernel launches
+per step, device time of the port's CUDA kernels against all other device
+work, and the ten kernels with the most device time.  Then ``--steps`` more
+steps without the profiler, with a host clock (after a device
+synchronisation) around the step's parts — the combination branch, the
+kernel launches, the full machinery trips and their detection,
+classification and resolution, the post-move mask and the playability
+loop — printed in ms per step (nested parts count in their callers too).
+Every number is the card's; the card's name and power limit head the
+output.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+# bench.py's five configs: rows, cols, colours, moves, specials
+CONFIGS = [
+    (5, 5, 3, 10, ()),
+    (10, 10, 4, 30, ()),
+    (10, 10, 4, 30, ("vertical_laser", "horizontal_laser", "bomb")),
+    (10, 10, 4, 30, ("cookie", "vertical_laser", "horizontal_laser", "bomb")),
+    (20, 20, 6, 100, ("cookie", "vertical_laser", "horizontal_laser", "bomb")),
+]
+PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel")
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals, in microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=16384)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profiling: needs a CUDA card", file=sys.stderr)
+        return 1
+    from . import random as trandom
+    from .config import EnvConfig
+    from .envs.batched import BatchedTileMatchEnv
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    R, C, K, moves, specials = CONFIGS[args.config]
+    cfg = EnvConfig.create(
+        R, C, K, moves,
+        colourless_specials=tuple(n for n in specials if n == "cookie"),
+        colour_specials=tuple(n for n in specials if n != "cookie"),
+    )
+    if 2 * args.steps + 4 >= moves:
+        raise SystemExit(f"--steps must leave the window before the reset at step {moves}")
+    dev = torch.device("cuda", 0)
+    env = BatchedTileMatchEnv(cfg, args.batch, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    states, ts = env.reset(trandom.PRNGKey(0, dev))
+
+    def one_step():
+        nonlocal states, ts
+        mask = ts.info.effective_actions
+        actions = torch.where(mask, torch.rand(mask.shape, generator=gen, device=dev), -1.0).argmax(-1)
+        states, ts = env.step(states, actions)
+
+    for _ in range(4):
+        one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
+    launches = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    port_us = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNELS))
+    other_us = sum(by_name.values()) - port_us
+    n = args.steps
+    print(f"config {args.config} B={args.batch}, {n} profiled steps")
+    print(f"wall {wall_ms / n:.3f} ms/step with the profiler on")
+    print(f"device busy {busy_ms / n:.3f} ms/step, {100 * busy_ms / wall_ms:.1f}% of wall")
+    print(f"kernel launches {launches / n:.1f}/step")
+    print(f"device time: port kernels {port_us / 1e3 / n:.3f} ms/step, "
+          f"other device work {other_us / 1e3 / n:.3f} ms/step")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / 1e3 / n:9.3f} ms/step  {name[:100]}")
+
+    # host-clock breakdown of the step's parts
+    from . import engine
+
+    spent = {}
+
+    def timed(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(module, name, wrapper)
+
+    for module, name in ((engine, "combination_branch"), (engine, "combination_match"),
+                         (engine, "make_playable"), (engine, "get_colour_lines"),
+                         (engine, "process_colour_lines"), (engine, "resolve_colour_matches"),
+                         (engine, "fused_specials_cascade"), (engine, "cascade_sp_chunk"),
+                         (engine, "specials_cascade_trip_grid"), (engine, "settled_mask_sp")):
+        timed(module, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"host-clock breakdown over {n} more steps: {wall_ms / n:.3f} ms/step in all")
+    for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
+        print(f"  {sec * 1e3 / n:9.3f} ms/step  {name}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,17 +1,22 @@
-"""Record a JAX rollout that the PyTorch port must replay bit for bit.
+"""Record JAX rollouts that the PyTorch port must replay bit for bit.
 
-Runs the JAX package on the CPU: config 1 of ``bench.py`` (10x10 boards,
-4 colours, 30 moves, no specials), 64 boards, 40 auto-resetting steps (one
-reset at step 30) under a deterministic policy both packages compute alike
-— board b at step t takes the ((7t + b) mod n_eff)-th of its n_eff
-effective actions, action 0 if it has none — and writes every state and
-TimeStep field of every step to ``tests/data/torch_port_fixture_cfg1.npz``.
+Runs the JAX package on the CPU under a deterministic policy both packages
+compute alike — board b at step t takes the ((7t + b) mod n_eff)-th of its
+n_eff effective actions, action 0 if it has none — and writes every state
+and TimeStep field of every step:
+
+* ``tests/data/torch_port_fixture_cfg1.npz``: config 1 of ``bench.py``
+  (10x10 boards, 4 colours, 30 moves, no specials), 64 boards, 40
+  auto-resetting steps (one reset at step 30);
+* ``tests/data/torch_port_fixture_cfg3.npz``: config 3 (the same with the
+  cookie, both lasers and the bomb), 32 boards, 35 steps (one reset at step
+  30).
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
 
-``tests/test_torch_envs.py`` replays the file through the port and checks
-that this script still writes the same arrays; ``chip_smoke.py`` replays it
-on the card.
+``tests/test_torch_envs.py`` and ``tests/test_torch_envs_sp.py`` replay the
+files through the port (the first also checks that this script still
+writes the same cfg1 arrays); ``chip_smoke.py`` replays both on the card.
 """
 
 from __future__ import annotations
@@ -23,10 +28,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg1.npz")
+FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
 CONFIG = dict(num_rows=10, num_cols=10, num_colours=4, num_moves=30)
 BATCH = 64
 STEPS = 40
 SEED = 2024
+# config 3: cookie, vertical laser, horizontal laser, bomb
+SPECIALS_CFG3 = ("cookie", "vertical_laser", "horizontal_laser", "bomb")
+BATCH_CFG3 = 32
+STEPS_CFG3 = 35
 
 # Stored narrower than their working dtype to keep the file small; values
 # are compared, not bytes.
@@ -51,9 +61,11 @@ def policy_actions(t: int, mask: np.ndarray) -> np.ndarray:
     return np.where(n_eff > 0, hit.argmax(-1), 0).astype(np.int32)
 
 
-def record(batch: int = BATCH, steps: int = STEPS) -> dict:
+def record(batch: int = BATCH, steps: int = STEPS, specials=()) -> dict:
     """Run the JAX package and return the fixture's arrays, each stacked
-    over steps 0..steps (step 0 is the reset)."""
+    over steps 0..steps (step 0 is the reset).  ``specials``: the enabled
+    special names; with any, the file also holds their flags under
+    "specials" (cookie, vertical laser, horizontal laser, bomb)."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     import jax
@@ -61,7 +73,11 @@ def record(batch: int = BATCH, steps: int = STEPS) -> dict:
     from tile_match_tpu.config import EnvConfig
     from tile_match_tpu.envs.batched import BatchedTileMatchEnv
 
-    cfg = EnvConfig.create(**CONFIG, colourless_specials=(), colour_specials=())
+    cfg = EnvConfig.create(
+        **CONFIG,
+        colourless_specials=tuple(n for n in specials if n == "cookie"),
+        colour_specials=tuple(n for n in specials if n != "cookie"),
+    )
     env = BatchedTileMatchEnv(cfg, batch)
     states, ts = env.reset(jax.random.PRNGKey(SEED))
     rows = []
@@ -87,14 +103,22 @@ def record(batch: int = BATCH, steps: int = STEPS) -> dict:
         [CONFIG[k] for k in ("num_rows", "num_cols", "num_colours", "num_moves")],
         np.int32,
     )
+    if specials:
+        out["specials"] = np.asarray(
+            [n in specials for n in ("cookie", "vertical_laser", "horizontal_laser", "bomb")],
+            np.int8,
+        )
     return {k: v.astype(NARROW.get(k, v.dtype)) for k, v in out.items()}
 
 
 def main() -> None:
-    arrays = record()
     os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
-    np.savez_compressed(FIXTURE, **arrays)
-    print(f"wrote {FIXTURE}: {os.path.getsize(FIXTURE)} bytes")
+    for path, arrays in (
+        (FIXTURE, record()),
+        (FIXTURE_CFG3, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_CFG3)),
+    ):
+        np.savez_compressed(path, **arrays)
+        print(f"wrote {path}: {os.path.getsize(path)} bytes")
 
 
 if __name__ == "__main__":

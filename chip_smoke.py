@@ -11,15 +11,29 @@ Phases, one line each or more; any failure exits non-zero:
      for bit in every output — K1 fused_cascade at 10x10x4 B=16384, 5x5x3
      B=1000 and 20x20x6 B=1024; K2 cascade_sp_chunk and K3 settled_mask_sp
      at 10x10x4 B=16384, 6x6x3 B=1000 and 20x20x6 B=1024 on boards with
-     sprinkled specials — and times both versions at 10x10x4 B=16384;
-  4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1
-     and _cfg3.npz) through BatchedTileMatchEnv on the card, every field;
+     sprinkled specials, and K2's no-bomb case table with K3 on its output
+     at 10x10x4 B=16384 (cookie and both lasers), 6x6x3 B=1000 (both
+     lasers), 8x8x4 B=1000 (cookie) and 20x20x6 B=1024 (cookie and both
+     lasers), and on 8x8x4 B=1024 boards where two cookie lines cross in
+     both tails — and times both versions at 10x10x4 B=16384;
+  4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1,
+     _cfg3 and _nobomb.npz) through BatchedTileMatchEnv on the card, every
+     field;
   5. runs config 1 (10x10, 4 colours, 30 moves, no specials) at batch 16384
      for 32 auto-resetting steps under a random effective policy, checks
      that K1 ran on every step, and times the steps;
   6. runs config 3 (the same with cookie, both lasers and bomb), the
      flagship, the same way: K2 and K3 on every step, board invariants,
-     truncation, and the cascade's telemetry.
+     truncation, and the cascade's telemetry;
+  7. runs config 3 without the bomb the same way: K2's no-bomb case table
+     and K3 on every step;
+  8. drives the Gym adapter's two engines on the card, one board at a
+     time: replays tests/golden_episodes.json through the numpy-parity
+     engine and the recorded JAX Gym episodes (tests/data/
+     torch_port_gym_episodes.json: threefry and numpy modes; all, no,
+     laser-only and cookie-only specials) through ThreefryDriver and
+     ParityEngine, bit for bit, checks that the threefry episodes launched
+     the kernels, and prints ms per step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -37,6 +51,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg1.npz")
 FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
+FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
+FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
+GOLDEN = os.path.join(ROOT, "tests", "golden_episodes.json")
 # name -> (module under tile_match_tpu_torch.ops, csrc source, TPU kernel replaced)
 KERNELS = {
     "fused_cascade": ("cascade", "cascade", "tile_match_tpu/ops/pallas_cascade.py:1107"),
@@ -44,6 +61,11 @@ KERNELS = {
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024))
+# K2's no-bomb case table: (R, C, K, B, (cookie, vertical laser, horizontal laser))
+NO_BOMB_SHAPES = ((10, 10, 4, 16384, (1, 1, 1)), (6, 6, 3, 1000, (0, 1, 1)),
+                  (8, 8, 4, 1000, (1, 0, 0)), (20, 20, 6, 1024, (1, 1, 1)))
+ALL_SPECIALS = (1, 1, 1, 1)
+NO_BOMB = (1, 1, 1, 0)
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
 SEED = 0
@@ -107,6 +129,83 @@ def replay_fixture(device, path: str = FIXTURE) -> int:
     return actions.shape[0]
 
 
+def play_episode(engine, cfg, ep) -> list:
+    """Play one recorded Gym episode through a Gym engine (``ParityEngine``
+    or ``ThreefryDriver``) as ``TileMatchEnv`` does — reset, then per step
+    the move, its info dict and the effective actions, none once done —
+    and check every observation, reward and info against the record.
+    Returns the host milliseconds of each step."""
+    import torch
+
+    from tile_match_tpu_torch.state import action_table
+
+    c1, c2 = action_table(cfg)
+    engine.generate_board()
+    check(np.array_equal(engine.board, np.asarray(ep["reset_board"])), "gym reset board differs")
+    check(np.flatnonzero(engine.effective_mask()).tolist() == ep["reset_effective"],
+          "gym reset effective actions differ")
+    ms = []
+    for t, want in enumerate(ep["steps"]):
+        a = want["action"]
+        t0 = time.perf_counter()
+        elim, comb, new, act, shuffled = engine.move(tuple(c1[a]), tuple(c2[a]))
+        done = t + 1 == cfg.num_moves
+        eff = [] if done else np.flatnonzero(engine.effective_mask()).tolist()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        info = {"is_combination_match": comb, "num_new_specials": new,
+                "num_specials_activated": act, "shuffled": shuffled, "effective_actions": eff}
+        check(np.array_equal(engine.board, np.asarray(want["board"])), f"gym step {t}: board differs")
+        check(elim == want["reward"] and done == want["done"], f"gym step {t}: reward or done differs")
+        check(info == want["info"], f"gym step {t}: info differs: {info} != {want['info']}")
+    return ms
+
+
+def replay_gym(device, path: str = FIXTURE_GYM) -> dict:
+    """Replay the recorded JAX Gym episodes through the port's engines on
+    ``device``; raises on the first difference.  Returns {(rng_mode, name):
+    host ms of each step}."""
+    import json
+
+    from tile_match_tpu_torch.config import EnvConfig
+    from tile_match_tpu_torch.envs._threefry_driver import ThreefryDriver
+    from tile_match_tpu_torch.parity import ParityEngine
+
+    with open(path) as f:
+        episodes = json.load(f)
+    out = {}
+    for ep in episodes:
+        R, C, K, M = ep["config"]
+        cfg = EnvConfig.create(R, C, K, M, colourless_specials=ep["specials"][0],
+                               colour_specials=ep["specials"][1])
+        if ep["rng_mode"] == "threefry":
+            engine = ThreefryDriver(cfg, ep["seed"], device)
+        else:
+            engine = ParityEngine(cfg, np.random.default_rng(ep["seed"]), device)
+        out[(ep["rng_mode"], ep["name"])] = play_episode(engine, cfg, ep)
+    return out
+
+
+def replay_golden(device, path: str = GOLDEN) -> list:
+    """Replay tests/golden_episodes.json (numpy mode, every special)
+    through ``ParityEngine`` on ``device``.  Returns the host ms of each
+    step."""
+    import json
+
+    from tile_match_tpu_torch.parity import ParityEngine
+
+    with open(path) as f:
+        episodes = json.load(f)
+    ms = []
+    for ep in episodes:
+        R, C, K, M, seed = ep["config"]
+        cfg = _config(R, C, K, M, ALL_SPECIALS)
+        engine = ParityEngine(cfg, np.random.default_rng(seed), device)
+        ms += play_episode(engine, cfg, ep)
+    return ms
+
+
 def _random_inputs(R, C, K, B, seed, device):
     import torch
 
@@ -116,11 +215,12 @@ def _random_inputs(R, C, K, B, seed, device):
     return torch.as_tensor(colour, device=device), torch.as_tensor(keys, device=device)
 
 
-def sprinkled_inputs(R, C, K, B, seed, device):
+def sprinkled_inputs(R, C, K, B, seed, device, kinds=(2, 3, 4, -1)):
     """K2's inputs from numpy: uniform random boards with 0-5 specials each
-    (vertical and horizontal lasers, bombs, cookies — colour 0), threefry
-    keys, starting trip counts 0-2, eliminations 0-9 and 5% frozen boards.
-    Returns (colour, kind, sub_keys, trips, elim, frozen)."""
+    of ``kinds`` (by default vertical and horizontal lasers, bombs, cookies
+    — colour 0), threefry keys, starting trip counts 0-2, eliminations 0-9
+    and 5% frozen boards.  Returns (colour, kind, sub_keys, trips, elim,
+    frozen)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -129,14 +229,32 @@ def sprinkled_inputs(R, C, K, B, seed, device):
     n_sp = rng.integers(0, 6, size=B)
     for b in range(B):
         cells = rng.choice(R * C, size=n_sp[b], replace=False)
-        kinds = rng.choice(np.array([2, 3, 4, -1], np.int32), size=n_sp[b])
-        kind[b].reshape(-1)[cells] = kinds
-        colour[b].reshape(-1)[cells[kinds == -1]] = 0
+        ks = rng.choice(np.array(kinds, np.int32), size=n_sp[b])
+        kind[b].reshape(-1)[cells] = ks
+        colour[b].reshape(-1)[cells[ks == -1]] = 0
     keys = rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64)
     trips = rng.integers(0, 3, size=B).astype(np.int32)
     elim = rng.integers(0, 10, size=B).astype(np.int32)
     frozen = (rng.random(B) < 0.05).astype(np.int32)
     return tuple(torch.as_tensor(a, device=device) for a in (colour, kind, keys, trips, elim, frozen))
+
+
+def corner_boards(B, seed):
+    """Boards with an L of two cookie lines, lengths 6 or 7, whose shared
+    corner lies in the tails of both: a horizontal line in row 6 or 7 and a
+    vertical line ending on its last or second-to-last cell, on a
+    line-free two-colour base (colours 1 and 2, the L in 3 or 4)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.indices((8, 8))
+    colour = np.where((rows + cols) % 2 == 0, 1, 2)[None].repeat(B, 0).astype(np.int32)
+    for b in range(B):
+        hl, vl = int(rng.integers(6, 8)), int(rng.integers(6, 8))
+        r, c0 = int(rng.integers(6, 8)), int(rng.integers(0, 9 - hl))
+        cross = c0 + hl - 1 - int(rng.integers(0, hl - 5))
+        pc = int(rng.integers(3, 5))
+        colour[b, r, c0 : c0 + hl] = pc
+        colour[b, r - vl + 1 : r + 1, cross] = pc
+    return colour, np.ones_like(colour)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -214,7 +332,7 @@ def check_kernels(device, smi):
     names = ("colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons")
     err2 = err3 = 0
     for R, C, K, B in SHAPES:
-        cfg = _config(R, C, K, 30, (1, 1, 1, 1))
+        cfg = _config(R, C, K, 30, ALL_SPECIALS)
         inputs = sprinkled_inputs(R, C, K, B, seed=R * 100 + B, device=device)
         got = cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=cfg.max_cascades)
         want = cascade_sp.cascade_sp_reference(cfg, *inputs, limit=cfg.max_cascades)
@@ -228,7 +346,7 @@ def check_kernels(device, smi):
         print(f"phase 3: K2 {R}x{C}x{K} B={B} kernel == plain in {', '.join(names)}; "
               f"mean trips {(got[2] - inputs[3]).float().mean().item():.2f}, {frozen} boards "
               f"frozen; K3 kernel == plain on its output")
-    cfg3 = _config(10, 10, 4, 30, (1, 1, 1, 1))
+    cfg3 = _config(10, 10, 4, 30, ALL_SPECIALS)
     inputs = sprinkled_inputs(10, 10, 4, MAIN_BATCH, seed=11, device=device)
     T = cfg3.max_cascades
     out = cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T)
@@ -240,6 +358,48 @@ def check_kernels(device, smi):
     rec["cascade_sp_chunk"] = dict(max_abs_err=err2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"phase 3 ok: K2 10x10x4 B={MAIN_BATCH} sprinkled boards: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    # K2's no-bomb case table, with K3 on its output
+    for R, C, K, B, flags in NO_BOMB_SHAPES:
+        cfg = _config(R, C, K, 30, (*flags, 0))
+        kinds = [k for k, on in ((2, flags[1]), (3, flags[2]), (-1, flags[0])) if on]
+        inputs = sprinkled_inputs(R, C, K, B, seed=R * 100 + B + 1, device=device, kinds=kinds)
+        got = cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=cfg.max_cascades)
+        want = cascade_sp.cascade_sp_reference(cfg, *inputs, limit=cfg.max_cascades)
+        torch.cuda.synchronize()
+        tag = f"K2 no-bomb {R}x{C}x{K} B={B} (cookie, v-laser, h-laser) = {flags}"
+        err2 = max(err2, _assert_equal(got, want, names, tag))
+        m_got = mask_sp.settled_mask_sp(cfg, got[0], got[1])
+        m_want = effective_mask_settled(cfg, got[0], got[1])
+        torch.cuda.synchronize()
+        err3 = max(err3, _assert_equal((m_got,), (m_want,), ("mask",), f"K3 on {tag}"))
+        fresh = (got[6] > 0) & (inputs[5] == 0)
+        by_bit = [int(((got[8][fresh] >> b) & 1).sum()) for b in range(7)]
+        print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; mean trips "
+              f"{(got[2] - inputs[3]).float().mean().item():.2f}, {int(fresh.sum())} boards "
+              f"frozen, per reason bit {by_bit}; K3 kernel == plain on its output")
+        if (R, C, K, B) == (10, 10, 4, MAIN_BATCH):
+            ms_nb = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=T), reps=20)
+            plain_nb = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg, *inputs, limit=T), reps=2)
+            refilled = int((got[3] - inputs[4]).sum())
+            ops = OPS_PER_REFILL * refilled + cfg.flat_size * int((got[2] - inputs[3]).sum())
+            b_nb, by_nb = bound(_nbytes(*inputs, *got), ops)
+            print(f"phase 3 ok: {tag}: kernel {ms_nb:.4f} ms, plain {plain_nb:.4f} ms, "
+                  f"bound {b_nb:.4f} ms ({by_nb}) ({smi})")
+    # the corner in the tails of two crossing cookie lines survives
+    cfg = _config(8, 8, 4, 30, NO_BOMB)
+    colour, kind = (torch.as_tensor(a, device=device) for a in corner_boards(1024, seed=5))
+    keys = torch.arange(2048, dtype=torch.int64, device=device).reshape(1024, 2)
+    z = torch.zeros(1024, dtype=torch.int32, device=device)
+    inputs = (colour, kind, keys, z, z, z)
+    got = cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=1)
+    want = cascade_sp.cascade_sp_reference(cfg, *inputs, limit=1)
+    torch.cuda.synchronize()
+    err2 = max(err2, _assert_equal(got, want, names, "K2 no-bomb crossing cookie tails"))
+    check(bool((got[4] == 2).all()), "K2 no-bomb crossing cookie tails: not two cookies a board")
+    print("phase 3: K2 no-bomb 8x8x4 B=1024 crossing cookie tails kernel == plain, two cookies "
+          "a board in closed form")
+    rec["cascade_sp_chunk"]["max_abs_err"] = err2
+
     colour, kind = out[0], out[1]
     mask = mask_sp.settled_mask_sp(cfg3, colour, kind)
     ms = _time_ms(lambda: mask_sp.settled_mask_sp(cfg3, colour, kind), reps=50)
@@ -359,15 +519,38 @@ def main() -> int:
     rec = check_kernels(device, smi)
 
     # 4. the recorded JAX rollouts, on the card
-    for path in (FIXTURE, FIXTURE_CFG3):
+    for path in (FIXTURE, FIXTURE_CFG3, FIXTURE_NOBOMB):
         n = replay_fixture(device, path)
         print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
 
-    # 5-6. the main paths
+    # 5-7. the batched main paths; each kernel's launches summed over them
+    specials = {"cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}
     launches = drive(_config(10, 10, 4), device, smi, "phase 5 (config 1)",
                      {"fused_cascade": cascade})
-    launches.update(drive(_config(10, 10, 4, 30, (1, 1, 1, 1)), device, smi, "phase 6 (config 3)",
-                          {"cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}))
+    launches.update(drive(_config(10, 10, 4, 30, ALL_SPECIALS), device, smi, "phase 6 (config 3)",
+                          specials))
+    for name, n in drive(_config(10, 10, 4, 30, NO_BOMB), device, smi,
+                         "phase 7 (config 3 without the bomb)", specials).items():
+        launches[name] += n
+
+    # 8. the Gym entry point: its two engines, one board at a time
+    for m in (cascade, cascade_sp, mask_sp):
+        m.launches = 0
+    golden_ms = replay_golden(device)
+    check(cascade.launches + cascade_sp.launches + mask_sp.launches == 0,
+          "phase 8: the numpy-parity engine launched a kernel")
+    print(f"phase 8 ok: replayed {len(golden_ms)} steps of golden_episodes.json bit for bit "
+          f"through ParityEngine: {sum(golden_ms) / len(golden_ms):.1f} ms/step ({smi})")
+    gym_ms = replay_gym(device)
+    gym_launches = {"fused_cascade": cascade.launches, "cascade_sp_chunk": cascade_sp.launches,
+                    "settled_mask_sp": mask_sp.launches}
+    check(all(n > 0 for n in gym_launches.values()),
+          f"phase 8: the threefry episodes did not launch every kernel: {gym_launches}")
+    for (mode, name), ms in gym_ms.items():
+        print(f"phase 8: {mode} engine, specials {name}: {len(ms)} steps bit for bit, "
+              f"{sum(ms) / len(ms):.1f} ms/step (median {sorted(ms)[len(ms) // 2]:.1f} ms) ({smi})")
+    print(f"phase 8 ok: replayed {len(gym_ms)} recorded JAX Gym episodes; threefry-engine "
+          f"launches {gym_launches}")
 
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

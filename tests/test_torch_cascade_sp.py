@@ -113,12 +113,17 @@ def test_k2_plain_frozen_boards_and_budget():
 
 
 def test_k2_refuses_configs_without_bomb():
-    _, tc = _cfgs(6, 6, 3, (("cookie",), ("vertical_laser",)))
-    colour, kind = sprinkled(6, 6, 3, 2, seed=0)
+    """K2 refuses only configs without any special; a config without the
+    bomb runs its no-bomb case table and freezes nothing it can take."""
     z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tsp.cascade_sp_reference(tc, torch.from_numpy(colour), torch.from_numpy(kind),
-                                 torch.zeros((2, 2), dtype=torch.int64), z, z, z, limit=8)
+    keys = torch.zeros((2, 2), dtype=torch.int64)
+    colour, kind = (torch.from_numpy(a) for a in sprinkled(6, 6, 3, 2, seed=0, kinds=(2,)))
+    _, none = _cfgs(6, 6, 3, ((), ()))
+    with pytest.raises(ValueError):
+        tsp.cascade_sp_reference(none, colour, kind, keys, z, z, z, limit=8)
+    _, tc = _cfgs(6, 6, 3, (("cookie",), ("vertical_laser",)))
+    out = tsp.cascade_sp_reference(tc, colour, kind, keys, z, z, z, limit=8)
+    assert int(out[2].sum()) > 0  # trips taken in closed form
 
 
 @pytest.mark.parametrize("R,K", [(6, 3), (8, 4)])

@@ -115,13 +115,16 @@ def test_gave_up_boards_match_jax():
 
 
 def test_specials_and_debug_checks_are_not_ported():
-    """Specials configs run, except those without bombs (the kernel's
-    no-bomb case table is not ported); debug_checks is not ported."""
+    """Every special set runs, without the bomb too (K2's no-bomb case
+    table); debug_checks is the one option not ported."""
     keys = trandom.split(trandom.PRNGKey(0, "cpu"), 2)
     te.reset(EnvConfig.create(6, 6, 4), keys)
     no_bomb = EnvConfig.create(6, 6, 4, colour_specials=("vertical_laser", "horizontal_laser"))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        te.reset(no_bomb, keys)
+    state, info = te.reset(no_bomb, keys)
+    assert info.effective_actions.any(-1).all() and not info.truncated.any()
+    acts = info.effective_actions.to(torch.int64).argmax(-1)
+    _, reward, _, _ = te.step(no_bomb, state, acts, eff_mask=info.effective_actions)
+    assert (reward > 0).all()
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         te.reset(cfgs(0, debug_checks=True)[1], keys)
 
@@ -133,6 +136,9 @@ def test_port_imports_without_jax():
         "sys.modules['jaxlib'] = None\n"
         "import tile_match_tpu_torch, tile_match_tpu_torch.envs.batched\n"
         "import tile_match_tpu_torch.interop, tile_match_tpu_torch.cuda_build\n"
+        "import tile_match_tpu_torch.parity, tile_match_tpu_torch.envs._threefry_driver\n"
+        "import tile_match_tpu_torch.envs.gym_env, tile_match_tpu_torch.envs.spaces\n"
+        "import tile_match_tpu_torch.wrappers, tile_match_tpu_torch.rendering.pygame_renderer\n"
         "assert not any(m.startswith('tile_match_tpu.') or m == 'tile_match_tpu' for m in sys.modules)\n"
         "print('imported')\n"
     )

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LASERS_BOMB = ((), ("vertical_laser", "horizontal_laser", "bomb"))  # config 2
 ALL = (("cookie",), ("vertical_laser", "horizontal_laser", "bomb"))  # config 3
+NO_BOMB = (("cookie",), ("vertical_laser", "horizontal_laser"))  # config 3 without the bomb
 
 
 def _cfgs(R, C, K, moves, specials):
@@ -106,9 +107,26 @@ def test_engine_step_matches_jax():
 
 
 def test_specials_without_bomb_are_refused():
-    tc = EnvConfig.create(6, 6, 3, colour_specials=("vertical_laser", "horizontal_laser"))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        te.reset(tc, trandom.split(trandom.PRNGKey(0, "cpu"), 2))
+    """Specials without the bomb are no longer refused: ``engine.step``
+    on K2's no-bomb case table equals ``jax.vmap(engine.step)``."""
+    jc, tc = _cfgs(6, 6, 3, 10, NO_BOMB)
+    B = 24
+    jkeys = jax.random.split(jax.random.PRNGKey(8), B)
+    jstate, jinfo = jax.vmap(lambda k: je.reset(jc, k))(jkeys)
+    tstate, tinfo = te.reset(tc, torch.from_numpy(np.asarray(jkeys).astype(np.int64)))
+    assert_state(tstate, jstate, "reset")
+    jstep = jax.jit(jax.vmap(lambda s, a, m: je.step(jc, s, a, eff_mask=m)))
+    te.reset_cascade_stats()
+    for t in range(3):
+        acts = policy_np(t, np.asarray(jinfo.effective_actions))
+        jstate, jrew, _, jinfo = jstep(jstate, jnp.asarray(acts), jinfo.effective_actions)
+        tstate, trew, _, tinfo = te.step(
+            tc, tstate, torch.from_numpy(acts), eff_mask=tinfo.effective_actions
+        )
+        assert_state(tstate, jstate, f"step {t}")
+        assert_info(tinfo, jinfo, f"step {t}")
+        assert np.array_equal(trew.numpy(), np.asarray(jrew))
+    assert te.cascade_stats["rounds"] >= 3
 
 
 def test_cfg3_fixture_replays_exactly():
@@ -122,3 +140,20 @@ def test_cfg3_fixture_replays_exactly():
     assert d["is_combination_match"].any() and d["num_new_specials"].any() and d["done"].any()
     assert set(INFO_FIELDS) <= set(d.files)
     assert chip_smoke.replay_fixture("cpu", fixture_tool.FIXTURE_CFG3) == fixture_tool.STEPS_CFG3
+
+
+def test_nobomb_fixture_replays_and_records():
+    """The recorded no-bomb rollout (the JAX machinery's, on the CPU)
+    replays through the port, and the tool still writes the same arrays."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    d = np.load(fixture_tool.FIXTURE_NOBOMB)
+    assert list(d["config"]) == [10, 10, 4, 30] and list(d["specials"]) == [1, 1, 1, 0]
+    assert d["num_new_specials"].any() and d["is_combination_match"].any() and d["done"].any()
+    assert chip_smoke.replay_fixture("cpu", fixture_tool.FIXTURE_NOBOMB) == fixture_tool.STEPS_CFG3
+    fresh = fixture_tool.record(fixture_tool.BATCH_CFG3, fixture_tool.STEPS_CFG3,
+                                fixture_tool.SPECIALS_NOBOMB)
+    assert sorted(fresh) == sorted(d.files)
+    for k in d.files:
+        assert np.array_equal(fresh[k], d[k]) and fresh[k].dtype == d[k].dtype, k

@@ -134,6 +134,43 @@ def test_cascade_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit)
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+NO_BOMB_SETS = {
+    "cookie-lasers": (("cookie",), ("vertical_laser", "horizontal_laser")),
+    "lasers": ((), ("vertical_laser", "horizontal_laser")),
+    "cookie": (("cookie",), ()),
+    "cookie-hlaser": (("cookie",), ("horizontal_laser",)),
+}
+NB_CASES = [(10, 10, 4, 2048, "cookie-lasers"), (6, 6, 3, 1000, "lasers"), (8, 8, 4, 1000, "cookie"),
+            (20, 20, 6, 256, "cookie-lasers"), (7, 9, 3, 300, "cookie-hlaser")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,name", NB_CASES)
+def test_cascade_sp_no_bomb_kernel_matches_plain_version(cuda_device, R, C, K, B, name):
+    """K2's no-bomb case table, and K3 on its output boards."""
+    specials = NO_BOMB_SETS[name]
+    cfg = _specials(R, C, K, colourless_specials=specials[0], colour_specials=specials[1])
+    kinds = [k for k, on in ((2, cfg.vertical_laser), (3, cfg.horizontal_laser), (-1, cfg.cookie)) if on]
+    inputs = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=R * B, device=cuda_device, kinds=kinds)
+    got = tsp.cascade_sp_chunk(cfg, *inputs, limit=cfg.max_cascades)
+    want = tsp.cascade_sp_reference(cfg, *inputs, limit=cfg.max_cascades)
+    for g, w, name_ in zip(got, want, SP_NAMES):
+        assert g.dtype == w.dtype and torch.equal(g, w), name_
+    assert int(got[6].sum()) > int(inputs[5].sum())  # some boards froze
+    assert torch.equal(tmask.settled_mask_sp(cfg, got[0], got[1]),
+                       effective_mask_settled(cfg, got[0], got[1]))
+
+
+@pytest.mark.cuda
+def test_gym_engines_replay_on_card(cuda_device):
+    """The Gym adapter's two engines on the card (the card's machine may
+    have no gymnasium, so the engines are driven as the adapter drives
+    them): the golden episodes and the recorded JAX Gym episodes."""
+    smoke = _chip_smoke()
+    assert len(smoke.replay_golden(cuda_device)) == 21
+    assert len(smoke.replay_gym(cuda_device)) == 8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,C,K,B,limit", SP_SHAPES)
 def test_settled_mask_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit):
@@ -156,11 +193,14 @@ def test_specials_kernels_refuse_bad_input(cuda_device):
         tsp.cascade_sp_chunk(cfg, colour.long(), kind, keys, trips, elim, frozen, limit=8)
     with pytest.raises(ValueError):
         tsp.cascade_sp_chunk(cfg, colour, kind, keys[:3], trips, elim, frozen, limit=8)
-    with pytest.raises(NotImplementedError):
-        tsp.cascade_sp_chunk(_specials(6, 6, 3, colour_specials=("vertical_laser",)),
-                             colour, kind, keys, trips, elim, frozen, limit=8)
     with pytest.raises(ValueError):
         tmask.settled_mask_sp(cfg, colour, kind.long())
+    # a single-laser config without the bomb runs, as its plain version
+    v_only = _specials(6, 6, 3, colour_specials=("vertical_laser",))
+    got = tsp.cascade_sp_chunk(v_only, colour, kind, keys, trips, elim, frozen, limit=8)
+    want = tsp.cascade_sp_reference(v_only, colour, kind, keys, trips, elim, frozen, limit=8)
+    for g, w, name in zip(got, want, SP_NAMES):
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.cuda
@@ -191,3 +231,9 @@ def test_specials_env_on_card_equals_env_on_cpu(cuda_device, R, C, K, B, moves, 
 def test_cfg3_fixture_replays_on_card(cuda_device):
     smoke = _chip_smoke()
     assert smoke.replay_fixture(cuda_device, smoke.FIXTURE_CFG3) == 35
+
+
+@pytest.mark.cuda
+def test_nobomb_fixture_replays_on_card(cuda_device):
+    smoke = _chip_smoke()
+    assert smoke.replay_fixture(cuda_device, smoke.FIXTURE_NOBOMB) == 35

@@ -17,6 +17,7 @@ import subprocess
 import pytest
 import torch
 
+from chip_smoke import corner_boards
 from tests.test_torch_specials import sprinkled
 from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch.config import EnvConfig
@@ -29,6 +30,11 @@ torch.set_num_threads(1)
 ALL = (("cookie",), ("vertical_laser", "horizontal_laser", "bomb"))
 LASERS_BOMB = ((), ("vertical_laser", "horizontal_laser", "bomb"))
 V_LASER_BOMB = ((), ("vertical_laser", "bomb"))
+# without the bomb: K2's no-bomb case table
+NO_BOMB = (("cookie",), ("vertical_laser", "horizontal_laser"))
+LASERS = ((), ("vertical_laser", "horizontal_laser"))
+COOKIE = (("cookie",), ())
+COOKIE_V = (("cookie",), ("vertical_laser",))
 NAMES = ["colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons"]
 
 
@@ -56,9 +62,12 @@ def host_libs(tmp_path_factory):
     return k2, k3
 
 
-def _inputs(R, C, K, B, seed):
+def _inputs(cfg, B, seed):
+    R, C, K = cfg.num_rows, cfg.num_cols, cfg.num_colours
     gen = torch.Generator().manual_seed(seed)
-    colour, kind = (torch.from_numpy(a) for a in sprinkled(R, C, K, B, seed, n_max=10))
+    kinds = [k for k, on in ((2, cfg.vertical_laser), (3, cfg.horizontal_laser), (4, cfg.bomb),
+                             (-1, cfg.cookie)) if on]
+    colour, kind = (torch.from_numpy(a) for a in sprinkled(R, C, K, B, seed, n_max=10, kinds=kinds))
     keys = torch.randint(0, 1 << 32, (B, 2), generator=gen, dtype=torch.int64)
     trips = torch.randint(0, 3, (B,), generator=gen, dtype=torch.int32)
     elim = torch.randint(0, 9, (B,), generator=gen, dtype=torch.int32)
@@ -70,12 +79,13 @@ def _inputs(R, C, K, B, seed):
     "R,C,K,specials,B,limit",
     [(6, 6, 3, ALL, 200, 8), (8, 8, 3, LASERS_BOMB, 200, 64), (10, 10, 4, ALL, 200, 64),
      (6, 6, 2, ALL, 200, 64), (7, 9, 3, V_LASER_BOMB, 150, 2), (20, 20, 6, ALL, 40, 64),
-     (5, 5, 3, ALL, 200, 64)],
+     (5, 5, 3, ALL, 200, 64), (10, 10, 4, NO_BOMB, 200, 64), (6, 6, 3, LASERS, 200, 64),
+     (8, 8, 4, COOKIE, 200, 64), (20, 20, 6, NO_BOMB, 40, 64), (7, 9, 3, COOKIE_V, 150, 2)],
 )
 def test_cascade_sp_board_program_matches_plain(host_libs, R, C, K, specials, B, limit):
     k2, k3 = host_libs
     cfg = EnvConfig.create(R, C, K, 30, colourless_specials=specials[0], colour_specials=specials[1])
-    inputs = _inputs(R, C, K, B, seed=R * C + limit)
+    inputs = _inputs(cfg, B, seed=R * C + limit)
     colour, kind, keys, trips, elim, frozen = inputs
     got = [torch.empty_like(colour), torch.empty_like(kind)]
     got += [torch.empty(B, dtype=torch.int32) for _ in range(5)]
@@ -92,6 +102,25 @@ def test_cascade_sp_board_program_matches_plain(host_libs, R, C, K, specials, B,
     mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
     assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), B, R, C, 1) == 0
     assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
+
+
+def test_cascade_sp_no_bomb_corners_match_plain(host_libs):
+    """Two cookie lines crossing in both tails: the corner survives."""
+    k2, _ = host_libs
+    cfg = EnvConfig.create(8, 8, 4, 30, colourless_specials=NO_BOMB[0], colour_specials=NO_BOMB[1])
+    colour, kind = (torch.from_numpy(a) for a in corner_boards(64, seed=1))
+    keys = torch.arange(128, dtype=torch.int64).reshape(64, 2)
+    z = torch.zeros(64, dtype=torch.int32)
+    inputs = (colour, kind, keys, z, z, z)
+    got = [torch.empty_like(colour), torch.empty_like(kind)]
+    got += [torch.empty(64, dtype=torch.int32) for _ in range(5)]
+    got += [torch.empty(64, dtype=torch.bool), torch.empty(64, dtype=torch.int32)]
+    assert k2(*(t.data_ptr() for t in inputs), *(t.data_ptr() for t in got),
+              64, 8, 8, 4, cfg.max_cascades, 1, 1, 1, 1, 0) == 0
+    want = cascade_sp_reference(cfg, *inputs, limit=1)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), name
+    assert (want[4] == 2).all()
 
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):

@@ -42,17 +42,18 @@ def _cfgs(R, C, K, specials):
     return JaxConfig.create(R, C, K, 10, **kw), EnvConfig.create(R, C, K, 10, **kw)
 
 
-def sprinkled(R, C, K, B, seed, n_max=6):
-    """Random boards with 0..n_max-1 specials each (cookies colourless)."""
+def sprinkled(R, C, K, B, seed, n_max=6, kinds=(2, 3, 4, -1)):
+    """Random boards with 0..n_max-1 specials each, of the given kinds
+    (cookies colourless)."""
     rng = np.random.default_rng(seed)
     colour = rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32)
     kind = np.ones_like(colour)
     for b in range(B):
         n = rng.integers(0, n_max)
         cells = rng.choice(R * C, size=n, replace=False)
-        kinds = rng.choice(np.array([2, 3, 4, -1], np.int32), size=n)
-        kind[b].reshape(-1)[cells] = kinds
-        colour[b].reshape(-1)[cells[kinds == -1]] = 0
+        ks = rng.choice(np.array(kinds, np.int32), size=n)
+        kind[b].reshape(-1)[cells] = ks
+        colour[b].reshape(-1)[cells[ks == -1]] = 0
     return colour, kind
 
 

@@ -18,7 +18,9 @@
 //      colour run in its row, over its column, over its row) decide whether
 //      every line classifies in closed form, which cells create which
 //      special and which union cells survive; any other shape freezes the
-//      board with its reason bits;
+//      board with its reason bits.  Without the bomb no line pairs with
+//      another, and one phase classifies every line by its length alone
+//      (`case_table_no_bomb` in the plain version);
 //   3. the activation closure of the lasers and bombs among the deleted
 //      cells: four expansions and a convergence check; a cookie in it, or
 //      no convergence, freezes the board;
@@ -37,8 +39,7 @@
 // lean tier for large boards, its trip chunks and its lane transposes are
 // gone.
 //
-// Limits: R * C <= 1024; input boards hold no empty cell; bomb enabled
-// (the case table without bombs is not ported).
+// Limits: R * C <= 1024; input boards hold no empty cell.
 
 #include "block.cuh"
 #include "threefry.cuh"
@@ -62,7 +63,7 @@ constexpr int kDele = 1, kRegion = 2;                                // fk
 
 struct Config {
   int R, C, K, max_cascades, limit;
-  bool cookie, v_laser, h_laser;
+  bool cookie, v_laser, h_laser, bomb;
 };
 
 // Shared arrays of one board: kCellArrays per cell, kColArrays per column,
@@ -215,179 +216,206 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
     });
 
     // ---- 2. the case table -----------------------------------------------
-    // per-cell aggregates over the cell's horizontal colour run [c0, c1]
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-      int ngv = 0, ncrh = 0, ne3 = 0, max_init = -1, max_u0 = -1;
-      for (int q = c0; q <= c1; ++q) {
-        const int g = r * C + q;
-        ngv += cv(g);
-        ncrh += cross(g);
-        const bool e3 = cv(g) && vext(g) == 3 && s.ue[g] >= 1;
-        ne3 += e3;
-        if (e3 && s.ue[g] * C + (C - 1 - q) > max_init) max_init = s.ue[g] * C + (C - 1 - q);
-        if (cv(g) && s.ue[g] == 0 && C - 1 - q > max_u0) max_u0 = C - 1 - q;
-      }
-      s.ngv[i] = ngv;
-      s.ncrh[i] = ncrh;
-      const bool has_e3 = ne3 > 0;
-      const bool h_star = mh(i) && ngv >= 1 && ncrh == 0;
-      const bool e3 = cv(i) && vext(i) == 3 && s.ue[i] >= 1;
-      const bool initA = e3 && s.ue[i] * C + (C - 1 - c) == max_init && h_star;
-      const bool partB =
-          cv(i) && s.ue[i] == 0 && C - 1 - c == max_u0 && h_star && !has_e3 && hl(i) == 3;
-      const bool v3_top =
-          ch(i) && vl(i) == 3 && s.col_ncrv[c] == 0 && r == s.col_topg[c];
-      s.fd[i] = (has_e3 ? kHasE3 : 0) | (initA ? kInitA : 0) | (partB ? kPartB : 0) |
-                (v3_top ? kV3Top : 0);
-      if (r == 0) {  // does this column hold a cookie-centre v-line?
-        bool vck = false;
-        const bool nsh_v = s.col_ngh[c] + s.col_ncrv[c] >= 1;
-        for (int q = 0; q < R && cf.cookie; ++q) {
-          const int g = q * C + c;
-          vck = vck || (mv(g) && in5_7(vl(g)) && nsh_v);
+    if (!cf.bomb) {
+      // every line by its length: a 4-line lasers at its second cell, a
+      // 5..8-line with the cookie on cookies at its third; a cell survives
+      // only in the tail of a 6- or 7-line and in no other line's cells but
+      // its tail; lines of 9 or more and extensions of 4 or more freeze the
+      // board
+      blk.each([&](int i) {
+        const bool memh = mh(i), memv = mv(i);
+        const int hli = hl(i), vli = vl(i);
+        const bool len_bad = cf.cookie && ((memh && hli >= 9) || (memv && vli >= 9));
+        const bool ext_bad = (ch(i) && hext(i) >= 4) || (cv(i) && vext(i) >= 4);
+        s.rb[i] = (len_bad ? kLen5 : 0) | (ext_bad ? kExt4 : 0);
+        const bool h4 = h_code != 0 && memh && hli == 4 && s.lc[i] == 1;
+        const bool v4 = v_code != 0 && memv && vli == 4 && s.uc[i] == 1;
+        const bool ck = cf.cookie && ((memh && hli >= 5 && hli <= 8 && s.lc[i] == 2) ||
+                                      (memv && vli >= 5 && vli <= 8 && s.uc[i] == 2));
+        const bool h_tail = cf.cookie && memh && (hli == 6 || hli == 7) && s.lc[i] >= 5;
+        const bool v_tail = cf.cookie && memv && (vli == 6 || vli == 7) && s.uc[i] >= 5;
+        const bool keep = (h_tail || v_tail) && (h_tail || !memh) && (v_tail || !memv) &&
+                          !ch(i) && !cv(i);
+        s.code[i] = h4 ? h_code : v4 ? v_code : ck ? -1 : 0;
+        const bool dele = (s.fc[i] & kUnion) && !keep;
+        s.fk[i] = dele ? kDele : 0;
+        s.s0[i] = dele && k[i] > 1;
+      });
+    } else {
+      // per-cell aggregates over the cell's horizontal colour run [c0, c1]
+      blk.each([&](int i) {
+        const int r = i / C, c = i % C;
+        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
+        int ngv = 0, ncrh = 0, ne3 = 0, max_init = -1, max_u0 = -1;
+        for (int q = c0; q <= c1; ++q) {
+          const int g = r * C + q;
+          ngv += cv(g);
+          ncrh += cross(g);
+          const bool e3 = cv(g) && vext(g) == 3 && s.ue[g] >= 1;
+          ne3 += e3;
+          if (e3 && s.ue[g] * C + (C - 1 - q) > max_init) max_init = s.ue[g] * C + (C - 1 - q);
+          if (cv(g) && s.ue[g] == 0 && C - 1 - q > max_u0) max_u0 = C - 1 - q;
         }
-        s.col_vck[c] = vck;
-      }
-    });
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-      const bool memh = mh(i), memv = mv(i), crs = cross(i), cdh = ch(i), cdv = cv(i);
-      const int hli = hl(i), vli = vl(i), hx = hext(i), vx = vext(i);
-      const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
-      const int nsh_v = n_gh_col + n_crv_col;
-      const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
-      const int nsh_h = n_gv_run + n_crh_run;
-      const bool has_e3 = (s.fd[i] & kHasE3) != 0;
-      const bool partB = (s.fd[i] & kPartB) != 0;
+        s.ngv[i] = ngv;
+        s.ncrh[i] = ncrh;
+        const bool has_e3 = ne3 > 0;
+        const bool h_star = mh(i) && ngv >= 1 && ncrh == 0;
+        const bool e3 = cv(i) && vext(i) == 3 && s.ue[i] >= 1;
+        const bool initA = e3 && s.ue[i] * C + (C - 1 - c) == max_init && h_star;
+        const bool partB =
+            cv(i) && s.ue[i] == 0 && C - 1 - c == max_u0 && h_star && !has_e3 && hl(i) == 3;
+        const bool v3_top =
+            ch(i) && vl(i) == 3 && s.col_ncrv[c] == 0 && r == s.col_topg[c];
+        s.fd[i] = (has_e3 ? kHasE3 : 0) | (initA ? kInitA : 0) | (partB ? kPartB : 0) |
+                  (v3_top ? kV3Top : 0);
+        if (r == 0) {  // does this column hold a cookie-centre v-line?
+          bool vck = false;
+          const bool nsh_v = s.col_ngh[c] + s.col_ncrv[c] >= 1;
+          for (int q = 0; q < R && cf.cookie; ++q) {
+            const int g = q * C + c;
+            vck = vck || (mv(g) && in5_7(vl(g)) && nsh_v);
+          }
+          s.col_vck[c] = vck;
+        }
+      });
+      blk.each([&](int i) {
+        const int r = i / C, c = i % C;
+        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
+        const bool memh = mh(i), memv = mv(i), crs = cross(i), cdh = ch(i), cdv = cv(i);
+        const int hli = hl(i), vli = vl(i), hx = hext(i), vx = vext(i);
+        const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
+        const int nsh_v = n_gh_col + n_crv_col;
+        const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
+        const int nsh_h = n_gv_run + n_crh_run;
+        const bool has_e3 = (s.fd[i] & kHasE3) != 0;
+        const bool partB = (s.fd[i] & kPartB) != 0;
 
-      const bool multi = (!prim(i) && (s.fc[i] & kCovH) && (s.fc[i] & kCovV)) ||
-                         (cdh && s.row_nch[r] >= 2) || (cdv && s.col_ncv[c] >= 2) ||
-                         (memh && n_gv_run >= 1 && n_crh_run >= 1) ||
-                         (memh && n_crh_run >= 2) || (memv && n_crv_col >= 2);
-      const bool ext_bad = (cdh && hx >= 5) || (cdv && vx >= 5);
-      const bool v4_star_bad = cdh && vli == 4 && hx == 4 && s.uc[i] == 1;
-      const bool v_ck_ok = cf.cookie && memv && in5_7(vli) && nsh_v >= 1;
-      const bool v_ck_bad = cdh && in5_7(vli) && hx == 4 && s.uc[i] == 2;
-      const bool v_ck_col = s.col_vck[c] != 0;
-      const bool cross_leaf = crs && v_ck_col && nsh_h == 1 && (hli == 3 || hli == 4);
-      const bool h_star = memh && n_gv_run >= 1 && n_crh_run == 0;
-      int n_ext4_a = 0, n_ext4_b = 0;  // len-4 exts that shift a laser / cookie pick
-      for (int q = c0; q <= c1; ++q) {
-        const int g = r * C + q;
-        const bool ext4 = cv(g) && vext(g) == 4;
-        n_ext4_a += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 1));
-        n_ext4_b += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 2));
-      }
-      const bool h4_star_bad = h_star && hli == 4 && !has_e3 && n_ext4_a > 0;
-      const bool h_ck_ok =
-          cf.cookie && memh && in5_7(hli) && nsh_h >= 1 && n_crh_run == 0 && !has_e3;
-      const bool h_ck_bad = memh && in5_7(hli) && (has_e3 || n_ext4_b > 0) && n_gv_run >= 1;
-      const bool shared_h = memh && nsh_h >= 1;
-      const bool shared_v = memv && nsh_v >= 1;
-      bool len_bad;
-      if (cf.cookie) {
-        len_bad = (memh && hli >= 9) || (memv && vli >= 9) || (shared_h && hli == 8) ||
-                  (shared_v && vli == 8) ||
-                  (shared_h && in5_7(hli) && !(h_ck_ok && !h_ck_bad)) ||
-                  (shared_v && in5_7(vli) && !v_ck_ok);
-      } else {
-        len_bad = (shared_h && hli >= 5) || (shared_v && vli >= 5);
-      }
-      const bool cr_pair = crs && nsh_h == 1 && nsh_v == 1;
-      const bool cr33 = cr_pair && hli == 3 && vli == 3;
-      const bool cr43 = cr_pair && hli == 4 && vli == 3;
-      const bool crv4 = cr_pair && vli == 4 && (hli == 3 || hli == 4);
-      const bool cross_bad = crs && !(cr33 || cr43 || crv4 || cross_leaf);
-      const bool star_bad = v4_star_bad || (v_ck_bad && v_ck_col) || h4_star_bad ||
-                            (cdh && hx <= 4 && vli == 3 && n_crv_col >= 1);
-      s.rb[i] = (len_bad ? kLen5 : 0) | (ext_bad ? kExt4 : 0) |
-                (star_bad || h_ck_bad ? kExtBomb : 0) | (cross_bad ? kCross : 0) |
-                (multi ? kMulti : 0);
-      const bool ext_vl = cdv && vx == 4 && h_star && !partB;
-      s.fe[i] = (cr33 ? kCr33 : 0) | (cr43 ? kCr43 : 0) | (crv4 ? kCrv4 : 0) |
-                (cross_leaf ? kCrossLeaf : 0) | (h_ck_ok ? kHckOk : 0) |
-                (v_ck_ok ? kVckOk : 0) | (ext_vl ? kExtVl : 0);
-      if (r == 0) {  // survivor row of a length-4 v-extension partner
-        int tsr = 0;
+        const bool multi = (!prim(i) && (s.fc[i] & kCovH) && (s.fc[i] & kCovV)) ||
+                           (cdh && s.row_nch[r] >= 2) || (cdv && s.col_ncv[c] >= 2) ||
+                           (memh && n_gv_run >= 1 && n_crh_run >= 1) ||
+                           (memh && n_crh_run >= 2) || (memv && n_crv_col >= 2);
+        const bool ext_bad = (cdh && hx >= 5) || (cdv && vx >= 5);
+        const bool v4_star_bad = cdh && vli == 4 && hx == 4 && s.uc[i] == 1;
+        const bool v_ck_ok = cf.cookie && memv && in5_7(vli) && nsh_v >= 1;
+        const bool v_ck_bad = cdh && in5_7(vli) && hx == 4 && s.uc[i] == 2;
+        const bool v_ck_col = s.col_vck[c] != 0;
+        const bool cross_leaf = crs && v_ck_col && nsh_h == 1 && (hli == 3 || hli == 4);
+        const bool h_star = memh && n_gv_run >= 1 && n_crh_run == 0;
+        int n_ext4_a = 0, n_ext4_b = 0;  // len-4 exts that shift a laser / cookie pick
+        for (int q = c0; q <= c1; ++q) {
+          const int g = r * C + q;
+          const bool ext4 = cv(g) && vext(g) == 4;
+          n_ext4_a += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 1));
+          n_ext4_b += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 2));
+        }
+        const bool h4_star_bad = h_star && hli == 4 && !has_e3 && n_ext4_a > 0;
+        const bool h_ck_ok =
+            cf.cookie && memh && in5_7(hli) && nsh_h >= 1 && n_crh_run == 0 && !has_e3;
+        const bool h_ck_bad = memh && in5_7(hli) && (has_e3 || n_ext4_b > 0) && n_gv_run >= 1;
+        const bool shared_h = memh && nsh_h >= 1;
+        const bool shared_v = memv && nsh_v >= 1;
+        bool len_bad;
+        if (cf.cookie) {
+          len_bad = (memh && hli >= 9) || (memv && vli >= 9) || (shared_h && hli == 8) ||
+                    (shared_v && vli == 8) ||
+                    (shared_h && in5_7(hli) && !(h_ck_ok && !h_ck_bad)) ||
+                    (shared_v && in5_7(vli) && !v_ck_ok);
+        } else {
+          len_bad = (shared_h && hli >= 5) || (shared_v && vli >= 5);
+        }
+        const bool cr_pair = crs && nsh_h == 1 && nsh_v == 1;
+        const bool cr33 = cr_pair && hli == 3 && vli == 3;
+        const bool cr43 = cr_pair && hli == 4 && vli == 3;
+        const bool crv4 = cr_pair && vli == 4 && (hli == 3 || hli == 4);
+        const bool cross_bad = crs && !(cr33 || cr43 || crv4 || cross_leaf);
+        const bool star_bad = v4_star_bad || (v_ck_bad && v_ck_col) || h4_star_bad ||
+                              (cdh && hx <= 4 && vli == 3 && n_crv_col >= 1);
+        s.rb[i] = (len_bad ? kLen5 : 0) | (ext_bad ? kExt4 : 0) |
+                  (star_bad || h_ck_bad ? kExtBomb : 0) | (cross_bad ? kCross : 0) |
+                  (multi ? kMulti : 0);
+        const bool ext_vl = cdv && vx == 4 && h_star && !partB;
+        s.fe[i] = (cr33 ? kCr33 : 0) | (cr43 ? kCr43 : 0) | (crv4 ? kCrv4 : 0) |
+                  (cross_leaf ? kCrossLeaf : 0) | (h_ck_ok ? kHckOk : 0) |
+                  (v_ck_ok ? kVckOk : 0) | (ext_vl ? kExtVl : 0);
+        if (r == 0) {  // survivor row of a length-4 v-extension partner
+          int tsr = 0;
+          for (int q = 0; q < R; ++q) {
+            const int g = q * C + c;
+            if ((s.fd[g] & kPartB) && vext(g) == 4) tsr += q + s.de[g] + 1;
+          }
+          s.col_tsr[c] = tsr;
+        }
+        if (c == 0) {  // h-extension laser target and survivor columns
+          int thc = 0, tsc = 0;
+          for (int q = 0; q < C; ++q) {
+            const int g = r * C + q;
+            const bool v_star = mv(g) && s.col_ngh[q] >= 1 && s.col_ncrv[q] == 0;
+            const bool v3 = (s.fd[g] & kV3Top) != 0;
+            if (ch(g) && hext(g) == 4 && ((v_star && !v3) || (s.col_vck[q] && vl(g) >= 5)))
+              thc += q - s.le[g] + 2;
+            if (v3 && hext(g) == 4)
+              tsc += (s.re[g] > s.le[g] ? q + s.re[g] : q - s.le[g]) + 1;
+          }
+          s.row_thc[r] = thc;
+          s.row_tsc[r] = tsc;
+        }
+      });
+
+      // creations and survivors
+      blk.each([&](int i) {
+        const int r = i / C, c = i % C;
+        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
+        const bool memh = mh(i), memv = mv(i), crs = cross(i);
+        const int hli = hl(i), vli = vl(i);
+        const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
+        const int nsh_v = n_gh_col + n_crv_col;
+        const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
+        const int nsh_h = n_gv_run + n_crh_run;
+        const int fd = s.fd[i], fe = s.fe[i];
+        const bool has_e3 = fd & kHasE3, initA = fd & kInitA;
+        const bool bomb = (fe & (kCr33 | kCr43)) || (fd & (kV3Top | kPartB)) ||
+                          (initA && (hli == 3 || hli == 4));
+        bool col_crv4 = false;
+        int tgt_vr = 0;
         for (int q = 0; q < R; ++q) {
           const int g = q * C + c;
-          if ((s.fd[g] & kPartB) && vext(g) == 4) tsr += q + s.de[g] + 1;
+          col_crv4 = col_crv4 || (s.fe[g] & kCrv4);
+          if (s.fe[g] & kExtVl) tgt_vr += q - s.ue[g] + 2;
         }
-        s.col_tsr[c] = tsr;
-      }
-      if (c == 0) {  // h-extension laser target and survivor columns
-        int thc = 0, tsc = 0;
-        for (int q = 0; q < C; ++q) {
+        const bool v4 = memv && vli == 4 && s.uc[i] == 1 &&
+                        (nsh_v == 0 || col_crv4 || (n_gh_col >= 1 && n_crv_col == 0));
+        int n_h4 = 0, sc_b = 0;
+        for (int q = c0; q <= c1; ++q) {
           const int g = r * C + q;
-          const bool v_star = mv(g) && s.col_ngh[q] >= 1 && s.col_ncrv[q] == 0;
-          const bool v3 = (s.fd[g] & kV3Top) != 0;
-          if (ch(g) && hext(g) == 4 && ((v_star && !v3) || (s.col_vck[q] && vl(g) >= 5)))
-            thc += q - s.le[g] + 2;
-          if (v3 && hext(g) == 4)
-            tsc += (s.re[g] > s.le[g] ? q + s.re[g] : q - s.le[g]) + 1;
+          n_h4 += ((s.fe[g] & kCrv4) && hl(g) == 4) || (s.fe[g] & kCrossLeaf);
+          const bool hrun_s = (s.fe[g] & kCr43) || ((s.fd[g] & kInitA) && hl(g) == 4);
+          if (hrun_s) sc_b += (s.rc[g] > s.lc[g] ? q + s.rc[g] : q - s.lc[g]) + 1;
         }
-        s.row_thc[r] = thc;
-        s.row_tsc[r] = tsc;
-      }
-    });
+        const bool h4_flag = n_h4 > 0 || (n_gv_run >= 1 && n_crh_run == 0 && !has_e3);
+        const bool h4 = memh && hli == 4 && s.lc[i] == 1 && (nsh_h == 0 || h4_flag);
+        const bool vl_cells = v_code != 0 && (v4 || r + 1 == tgt_vr);
+        const bool hl_cells = h_code != 0 && (h4 || c + 1 == s.row_thc[r]);
+        const bool ck = cf.cookie &&
+                        ((memh && hli >= 5 && hli <= 8 && s.lc[i] == 2 &&
+                          (nsh_h == 0 || (fe & kHckOk))) ||
+                         (memv && vli >= 5 && vli <= 8 && s.uc[i] == 2 &&
+                          (nsh_v == 0 || (fe & kVckOk))));
+        bool keep = memh && c + 1 == sc_b;
+        keep = keep || (c + 1 == s.row_tsc[r] && !prim(i));
+        keep = keep || (r + 1 == s.col_tsr[c] && !prim(i));
+        if (cf.cookie) {
+          keep = keep || (memh && (hli == 6 || hli == 7) && s.lc[i] >= 5 &&
+                          (nsh_h == 0 || (fe & kHckOk)) && !cv(i) && !crs && !memv);
+          keep = keep || (memv && (vli == 6 || vli == 7) && s.uc[i] >= 5 &&
+                          (nsh_v == 0 || (fe & kVckOk)) && !ch(i) && !crs && !memh);
+        }
+        s.code[i] = bomb ? 4 : vl_cells ? v_code : hl_cells ? h_code : ck ? -1 : 0;
+        const bool dele = (s.fc[i] & kUnion) && !keep;
+        s.fk[i] = dele ? kDele : 0;
+        s.s0[i] = dele && k[i] > 1;
+      });
+    }
     const int table_bits = blk.bit_or([&](int i) { return s.rb[i]; });
-
-    // creations and survivors
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-      const bool memh = mh(i), memv = mv(i), crs = cross(i);
-      const int hli = hl(i), vli = vl(i);
-      const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
-      const int nsh_v = n_gh_col + n_crv_col;
-      const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
-      const int nsh_h = n_gv_run + n_crh_run;
-      const int fd = s.fd[i], fe = s.fe[i];
-      const bool has_e3 = fd & kHasE3, initA = fd & kInitA;
-      const bool bomb = (fe & (kCr33 | kCr43)) || (fd & (kV3Top | kPartB)) ||
-                        (initA && (hli == 3 || hli == 4));
-      bool col_crv4 = false;
-      int tgt_vr = 0;
-      for (int q = 0; q < R; ++q) {
-        const int g = q * C + c;
-        col_crv4 = col_crv4 || (s.fe[g] & kCrv4);
-        if (s.fe[g] & kExtVl) tgt_vr += q - s.ue[g] + 2;
-      }
-      const bool v4 = memv && vli == 4 && s.uc[i] == 1 &&
-                      (nsh_v == 0 || col_crv4 || (n_gh_col >= 1 && n_crv_col == 0));
-      int n_h4 = 0, sc_b = 0;
-      for (int q = c0; q <= c1; ++q) {
-        const int g = r * C + q;
-        n_h4 += ((s.fe[g] & kCrv4) && hl(g) == 4) || (s.fe[g] & kCrossLeaf);
-        const bool hrun_s = (s.fe[g] & kCr43) || ((s.fd[g] & kInitA) && hl(g) == 4);
-        if (hrun_s) sc_b += (s.rc[g] > s.lc[g] ? q + s.rc[g] : q - s.lc[g]) + 1;
-      }
-      const bool h4_flag = n_h4 > 0 || (n_gv_run >= 1 && n_crh_run == 0 && !has_e3);
-      const bool h4 = memh && hli == 4 && s.lc[i] == 1 && (nsh_h == 0 || h4_flag);
-      const bool vl_cells = v_code != 0 && (v4 || r + 1 == tgt_vr);
-      const bool hl_cells = h_code != 0 && (h4 || c + 1 == s.row_thc[r]);
-      const bool ck = cf.cookie &&
-                      ((memh && hli >= 5 && hli <= 8 && s.lc[i] == 2 &&
-                        (nsh_h == 0 || (fe & kHckOk))) ||
-                       (memv && vli >= 5 && vli <= 8 && s.uc[i] == 2 &&
-                        (nsh_v == 0 || (fe & kVckOk))));
-      bool keep = memh && c + 1 == sc_b;
-      keep = keep || (c + 1 == s.row_tsc[r] && !prim(i));
-      keep = keep || (r + 1 == s.col_tsr[c] && !prim(i));
-      if (cf.cookie) {
-        keep = keep || (memh && (hli == 6 || hli == 7) && s.lc[i] >= 5 &&
-                        (nsh_h == 0 || (fe & kHckOk)) && !cv(i) && !crs && !memv);
-        keep = keep || (memv && (vli == 6 || vli == 7) && s.uc[i] >= 5 &&
-                        (nsh_v == 0 || (fe & kVckOk)) && !ch(i) && !crs && !memh);
-      }
-      s.code[i] = bomb ? 4 : vl_cells ? v_code : hl_cells ? h_code : ck ? -1 : 0;
-      const bool dele = (s.fc[i] & kUnion) && !keep;
-      s.fk[i] = dele ? kDele : 0;
-      s.s0[i] = dele && k[i] > 1;
-    });
 
     // ---- 3. the activation closure ----------------------------------------
     const int n_spec = blk.count([&](int i) { return (s.fk[i] & kDele) && k[i] != 1; });
@@ -539,14 +567,15 @@ extern "C" int tmt_cascade_sp(const int* colour_in, const int* kind_in, const lo
                               void* stream) {
   if (B == 0) return 0;
   const int n = R * C;
-  if (n > 1024 || R < 1 || C < 1 || K < 1 || K > 65535 || !bomb) return cudaErrorInvalidValue;
+  if (n > 1024 || R < 1 || C < 1 || K < 1 || K > 65535) return cudaErrorInvalidValue;
   const int threads = ((n + 31) / 32) * 32;
   const size_t smem = tmt::smem_ints(R, C) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(cascade_sp_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0};
+  const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0,
+                       bomb != 0};
   cascade_sp_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       colour_in, kind_in, sub_keys, trips_in, elim_in, frozen_in, colour_out, kind_out,
       trips_out, elim_out, new_out, act_out, frozen_out, active_out, reasons_out, cf);
@@ -564,12 +593,12 @@ extern "C" int tmt_cascade_sp_host(const int* colour_in, const int* kind_in,
                                    int* act_out, int* frozen_out, bool* active_out,
                                    int* reasons_out, int B, int R, int C, int K, int max_cascades,
                                    int limit, int cookie, int v_laser, int h_laser, int bomb) {
-  if (!bomb) return 1;
   const int n = R * C;
   std::vector<int> smem(tmt::smem_ints(R, C));
   const tmt::Block blk{n};
   const tmt::Smem s(smem.data(), R, C);
-  const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0};
+  const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0,
+                       bomb != 0};
   for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
     for (int i = 0; i < n; ++i) {
       s.x[i] = colour_in[b * n + i];

@@ -17,8 +17,8 @@ K2 (``ops.cascade_sp.cascade_sp_chunk``) takes every board's simple trips,
 the full machinery (detect, classify, resolve, gravity, refill:
 ``specials_cascade_trip_grid``) the others — and the settled mask is K3
 (``ops.mask_sp.settled_mask_sp``).  On CUDA tensors these are the CUDA
-kernels, on CPU tensors their plain versions.  Specials configs without
-bombs raise ``NotImplementedError``: K2's no-bomb case table is not ported.
+kernels, on CPU tensors their plain versions.  Every special set runs;
+without the bomb K2 takes its no-bomb case table.
 """
 
 from __future__ import annotations
@@ -43,11 +43,6 @@ from .state import EnvState, StepInfo, action_table
 
 
 def _check_supported(cfg: EnvConfig) -> None:
-    if cfg.any_special and not cfg.bomb:
-        raise NotImplementedError(
-            "specials configs without bombs are not ported (ROADMAP Queue 2: "
-            "the kernel's no-bomb case table); enable the bomb"
-        )
     if cfg.debug_checks:
         raise NotImplementedError(
             "debug_checks is not ported yet (ROADMAP Queue 1 item 9, gates "

@@ -4,6 +4,8 @@ The JAX package's ``EnvState`` (batched under vmap) converts losslessly:
 colour and kind int32[B, R, C], timer int32[B], key uint32[B, 2] (the port
 holds the key words as int64).  ``timestep_to_numpy`` / ``info_to_numpy``
 give the same field names as the JAX ``TimeStep`` / ``StepInfo``.
+``load_engine_state`` carries the state of one of the JAX Gym adapter's
+engines into the port's counterpart.
 """
 
 from __future__ import annotations
@@ -26,6 +28,24 @@ def state_from_numpy(colour, kind, timer, key, device) -> EnvState:
         timer=torch.as_tensor(np.array(timer, np.int32), device=device),
         key=torch.as_tensor(key.astype(np.int64), device=device),
     )
+
+
+def load_engine_state(engine, board, rng) -> None:
+    """Give a port Gym engine the state of a JAX one: ``board`` is the
+    [2, R, C] board (``engine.board`` there), ``rng`` the randomness — for
+    a ``ThreefryDriver`` its key, uint32[2] (``engine.key``); for a
+    ``ParityEngine`` its ``np.random.Generator``, whose state is copied
+    into a generator of the same bit generator."""
+    engine.board[...] = np.asarray(board, np.int32)
+    if isinstance(rng, np.random.Generator):
+        bits = type(rng.bit_generator)()
+        bits.state = rng.bit_generator.state
+        engine.np_random = np.random.Generator(bits)
+        return
+    key = np.asarray(rng)
+    if key.dtype != np.uint32 or key.shape != (2,):
+        raise ValueError(f"key must be uint32[2] threefry words, got {key.dtype}{list(key.shape)}")
+    engine.key = torch.as_tensor(key.astype(np.int64), device=engine.key.device)
 
 
 def state_to_numpy(state: EnvState) -> dict:

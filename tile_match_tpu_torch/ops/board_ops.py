@@ -59,6 +59,11 @@ def apply_refill(colour, kind, fill_grid):
     )
 
 
+def num_empty(colour, kind):
+    """int32[B]: the empty cells (both channels zero) of each board."""
+    return ((colour == 0) & (kind == 0)).flatten(1).sum(-1, dtype=torch.int32)
+
+
 def apply_shuffle(colour, kind, perm):
     """Permute both channels of each board by one flat permutation
     int[B, R*C]: cell i takes the value of cell perm[i]."""

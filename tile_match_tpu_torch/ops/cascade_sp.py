@@ -14,9 +14,9 @@ not simple: then the board is **frozen** and the caller runs that trip
 through the full classify/resolve machinery (``engine.
 specials_cascade_trip_grid``).  ``reasons`` says why a board froze.
 
-Input boards hold no empty cell (colour 0 and kind 0).  Configs with
-specials but no bomb are not supported: their case table (the reference's
-no-bomb branch) is not ported.
+Input boards hold no empty cell (colour 0 and kind 0).  Configs without
+the bomb take a case table of their own (``_case_table_no_bomb``), where
+every line classifies by its length alone.
 
 ``cascade_sp_chunk`` launches the CUDA kernel (``csrc/cascade_sp.cu``) on
 CUDA tensors and runs ``cascade_sp_reference`` on CPU tensors.
@@ -53,11 +53,6 @@ _NEXP = 4  # expansions of the activation closure
 def _check_config(cfg: EnvConfig) -> None:
     if not cfg.any_special:
         raise ValueError("cascade_sp runs configs with specials; use ops.cascade")
-    if not cfg.bomb:
-        raise NotImplementedError(
-            "the specials cascade without bombs is not ported (ROADMAP Queue 2: "
-            "the reference's no-bomb case table is suspected faulty, Queue 3)"
-        )
 
 
 def _detect(colour: torch.Tensor) -> dict:
@@ -104,8 +99,67 @@ def _detect(colour: torch.Tensor) -> dict:
     )
 
 
+def _case_table_no_bomb(cfg: EnvConfig, a: dict):
+    """The closed-form classification of one trip without the bomb; returns
+    what ``_case_table`` returns.
+
+    Without the bomb no line pairs with another (`board.py:304-320` needs
+    it), so every line classifies by its length alone: 3-lines and, with
+    the cookie off, >= 5-lines are normals; a 4-line is a laser at its
+    second cell (the h -> v fallback as in ``_case_table``); a 5..8-line
+    with the cookie on is a cookie at its third cell whose first five cells
+    go, a length-8 line's remainder goes as a normal and 6- and 7-lines
+    keep their tail.  Creation picks never collide: a v-line's pick lies
+    above the flag row, and extensions of length 3 create nothing.  A cell
+    survives only if every line holding it leaves it in its tail: a tail
+    cell that a crossing line or an extension also holds is deleted by
+    that line (the reference kernel's no-bomb branch keeps it,
+    `pallas_cascade.py:527-529`; the machinery deletes it), and the corner
+    of two crossing 6- or 7-lines that is in both tails survives.  Lines
+    of length >= 9 (the remainder classifies again) and extensions of
+    length >= 4 freeze the board.
+    """
+    h_code = 3 if cfg.horizontal_laser else (2 if cfg.vertical_laser else 0)
+    v_code = 2 if cfg.vertical_laser else 0
+    member_h, member_v = a["member_h"], a["member_v"]
+    hl, vl = a["hl"], a["vl"]
+    lcnt, ucnt = a["lcnt"], a["ucnt"]
+    cand_h, cand_v = a["cand_h"], a["cand_v"]
+    zb = torch.zeros_like(member_h)
+
+    def any_(m):
+        return m.flatten(1).any(-1)
+
+    if cfg.cookie:
+        len_bad = (member_h & (hl >= 9)) | (member_v & (vl >= 9))
+    else:
+        len_bad = zb
+    ext_bad = (cand_h & (a["hext"] >= 4)) | (cand_v & (a["vext"] >= 4))
+    reasons = (any_(len_bad) * REASON_LEN5 + any_(ext_bad) * REASON_EXT4).to(torch.int32)
+    simple = ~any_(len_bad | ext_bad)
+
+    h4 = member_h & (hl == 4) & (lcnt == 1) if h_code else zb
+    v4 = member_v & (vl == 4) & (ucnt == 1) if v_code else zb
+    if cfg.cookie:
+        ck = (member_h & (hl >= 5) & (hl <= 8) & (lcnt == 2)) | (
+            member_v & (vl >= 5) & (vl <= 8) & (ucnt == 2)
+        )
+        h_tail = member_h & (hl >= 6) & (hl <= 7) & (lcnt >= 5)
+        v_tail = member_v & (vl >= 6) & (vl <= 7) & (ucnt >= 5)
+        keep = (
+            (h_tail | v_tail) & (h_tail | ~member_h) & (v_tail | ~member_v) & ~cand_h & ~cand_v
+        )
+    else:
+        ck = keep = zb
+    create = h4 | v4 | ck
+    code = torch.where(
+        h4, h_code, torch.where(v4, v_code, torch.where(ck, -1, 0))
+    ).to(torch.int32)
+    return simple, create, code, keep, reasons
+
+
 def _case_table(cfg: EnvConfig, a: dict):
-    """The closed-form classification of one trip (bomb enabled).
+    """The closed-form classification of one trip.
 
     Returns (simple bool[B], create bool[B, R, C], code int32[B, R, C],
     keep bool[B, R, C], reasons int32[B]): when ``simple``, resolution
@@ -123,8 +177,11 @@ def _case_table(cfg: EnvConfig, a: dict):
     queued line sharing with it (a bomb at the share point, `board.py:
     441-447`; a 4-line partner keeps its farthest cell, `board.py:309-312`),
     4-lines popped before it become lasers, and every other line resolves
-    alone.  Everything else freezes the board.
+    alone.  Everything else freezes the board.  Configs without the bomb
+    take ``_case_table_no_bomb``.
     """
+    if not cfg.bomb:
+        return _case_table_no_bomb(cfg, a)
     h_code = 3 if cfg.horizontal_laser else (2 if cfg.vertical_laser else 0)
     v_code = 2 if cfg.vertical_laser else 0
     member_h, member_v = a["member_h"], a["member_v"]

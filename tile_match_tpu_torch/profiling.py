@@ -1,9 +1,10 @@
 """Profile the PyTorch port's batched step on one CUDA card (counterpart of
 ``tile_match_tpu.profiling``, on ``torch.profiler``).
 
-    python -m tile_match_tpu_torch.profiling [--config 3] [--batch 16384] [--steps 10]
+    python -m tile_match_tpu_torch.profiling [--config 3] [--no-bomb] [--batch 16384] [--steps 10]
 
-Builds config ``--config`` of ``bench.py`` (0-4), resets a batch, runs 4
+Builds config ``--config`` of ``bench.py`` (0-4), without the bomb with
+``--no-bomb`` (K2's no-bomb case table), resets a batch, runs 4
 warm-up steps through ``BatchedTileMatchEnv`` under a random effective
 policy, then ``--steps`` steps under ``torch.profiler`` (no auto-reset falls
 in the window).  Prints, for the window: wall time per step, device busy
@@ -57,6 +58,7 @@ def main() -> int:
     ap.add_argument("--config", type=int, default=3)
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--no-bomb", action="store_true", help="drop the bomb from the config")
     args = ap.parse_args()
 
     import torch
@@ -74,6 +76,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
     R, C, K, moves, specials = CONFIGS[args.config]
+    if args.no_bomb:
+        specials = tuple(n for n in specials if n != "bomb")
     cfg = EnvConfig.create(
         R, C, K, moves,
         colourless_specials=tuple(n for n in specials if n == "cookie"),

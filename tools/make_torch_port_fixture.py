@@ -10,17 +10,29 @@ and TimeStep field of every step:
   auto-resetting steps (one reset at step 30);
 * ``tests/data/torch_port_fixture_cfg3.npz``: config 3 (the same with the
   cookie, both lasers and the bomb), 32 boards, 35 steps (one reset at step
-  30).
+  30);
+* ``tests/data/torch_port_fixture_nobomb.npz``: config 3 without the bomb
+  (cookie and both lasers), 32 boards, 35 steps.  On the CPU the JAX
+  batched env steps through ``jax.vmap(engine.step)``, the full
+  classify/resolve machinery on every trip, and not through its Pallas
+  kernel, so this rollout is the machinery's;
+* ``tests/data/torch_port_gym_episodes.json``: single-board episodes of the
+  JAX Gym adapter ``TileMatchEnv`` at 10x10, 4 colours, 8 moves, in both
+  RNG modes ("threefry" and "numpy"), for four special sets — all, none,
+  both lasers, cookie only — under the same policy with board b = the
+  episode's index.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
 
-``tests/test_torch_envs.py`` and ``tests/test_torch_envs_sp.py`` replay the
-files through the port (the first also checks that this script still
-writes the same cfg1 arrays); ``chip_smoke.py`` replays both on the card.
+``tests/test_torch_envs.py``, ``tests/test_torch_envs_sp.py`` and
+``tests/test_torch_gym.py`` replay the files through the port and check
+that this script still writes the same arrays; ``chip_smoke.py`` replays
+them on the card.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -37,6 +49,18 @@ SEED = 2024
 SPECIALS_CFG3 = ("cookie", "vertical_laser", "horizontal_laser", "bomb")
 BATCH_CFG3 = 32
 STEPS_CFG3 = 35
+FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
+SPECIALS_NOBOMB = ("cookie", "vertical_laser", "horizontal_laser")
+FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
+# special sets of the Gym episodes: (name, colourless specials, colour specials)
+GYM_SETS = (
+    ("all", ("cookie",), ("vertical_laser", "horizontal_laser", "bomb")),
+    ("none", (), ()),
+    ("lasers", (), ("vertical_laser", "horizontal_laser")),
+    ("cookie", ("cookie",), ()),
+)
+GYM_CONFIG = (10, 10, 4, 8)  # rows, cols, colours, moves
+GYM_SEED = 7
 
 # Stored narrower than their working dtype to keep the file small; values
 # are compared, not bytes.
@@ -111,14 +135,54 @@ def record(batch: int = BATCH, steps: int = STEPS, specials=()) -> dict:
     return {k: v.astype(NARROW.get(k, v.dtype)) for k, v in out.items()}
 
 
+def record_gym(modes=("threefry", "numpy")) -> list:
+    """Run the JAX Gym adapter: one episode per RNG mode and special set.
+    Each holds its config, seed, special set and mode, the reset board and
+    effective actions, and per step the action, reward, done, board and
+    info dict."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from tile_match_tpu.envs.gym_env import TileMatchEnv
+
+    R, C, K, M = GYM_CONFIG
+    episodes = []
+    for rng_mode in modes:
+        for i, (name, colourless, colour) in enumerate(GYM_SETS):
+            env = TileMatchEnv(R, C, K, M, list(colourless), list(colour), seed=GYM_SEED + i,
+                               rng_mode=rng_mode)
+            obs, info = env.reset()
+            ep = {
+                "config": [R, C, K, M], "seed": GYM_SEED + i, "rng_mode": rng_mode,
+                "specials": [list(colourless), list(colour)], "name": name,
+                "reset_board": obs["board"].tolist(),
+                "reset_effective": [int(a) for a in info["effective_actions"]],
+                "steps": [],
+            }
+            for t in range(M):
+                mask = np.zeros((1, env.num_actions), bool)
+                mask[0, info["effective_actions"]] = True
+                action = int(policy_actions(t + i, mask)[0])
+                obs, reward, done, _trunc, info = env.step(action)
+                info = {k: (list(map(int, v)) if k == "effective_actions" else v)
+                        for k, v in info.items()}
+                ep["steps"].append({"action": action, "reward": int(reward), "done": bool(done),
+                                    "board": obs["board"].tolist(), "info": info})
+            episodes.append(ep)
+    return episodes
+
+
 def main() -> None:
     os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
     for path, arrays in (
         (FIXTURE, record()),
         (FIXTURE_CFG3, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_CFG3)),
+        (FIXTURE_NOBOMB, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_NOBOMB)),
     ):
         np.savez_compressed(path, **arrays)
         print(f"wrote {path}: {os.path.getsize(path)} bytes")
+    with open(FIXTURE_GYM, "w") as f:
+        json.dump(record_gym(), f, separators=(",", ":"))
+    print(f"wrote {FIXTURE_GYM}: {os.path.getsize(FIXTURE_GYM)} bytes")
 
 
 if __name__ == "__main__":

@@ -5,15 +5,19 @@
 
 Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
-  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/, one
-     nvcc each, all at once, and prints their registers and spills;
+  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/ — the
+     cascades once for each board shape of at most 32 by 32 that the run
+     uses and once for larger boards — one nvcc a library, all at once,
+     and prints their registers and spills and the boards each keeps in
+     flight per SM at 10x10 and 36x36;
   3. holds each kernel against its plain PyTorch version on the card, bit
      for bit in every output — K1 fused_cascade at 10x10x4 B=16384, 5x5x3
-     B=1000 and 20x20x6 B=1024; K2 cascade_sp_chunk and K3 settled_mask_sp
-     at 10x10x4 B=16384, 6x6x3 B=1000 and 20x20x6 B=1024 on boards with
-     sprinkled specials, and K2's no-bomb case table with K3 on its output
-     at 10x10x4 B=16384 (cookie and both lasers), 6x6x3 B=1000 (both
-     lasers), 8x8x4 B=1000 (cookie) and 20x20x6 B=1024 (cookie and both
+     B=1000, 20x20x6 B=1024 and 36x36x6 B=256 (1,296 cells); K2
+     cascade_sp_chunk and K3 settled_mask_sp at 10x10x4 B=16384, 6x6x3
+     B=1000, 20x20x6 B=1024 and 36x36x6 B=256 on boards with sprinkled
+     specials, and K2's no-bomb case table with K3 on its output at 10x10x4
+     B=16384 (cookie and both lasers), 6x6x3 B=1000 (both lasers), 8x8x4
+     B=1000 (cookie), 20x20x6 B=1024 and 36x36x6 B=256 (cookie and both
      lasers), and on 8x8x4 B=1024 boards where two cookie lines cross in
      both tails — and times both versions at 10x10x4 B=16384;
   4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1,
@@ -40,6 +44,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -60,10 +65,18 @@ KERNELS = {
     "cascade_sp_chunk": ("cascade_sp", "cascade_sp", "tile_match_tpu/ops/pallas_cascade.py:1434"),
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
 }
-SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024))
+SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
+# the board shapes the cascades' libraries are built for in phase 2: they
+# take their shape at compile time, and 36x36 stands for every board above
+# 32 by 32 (one library whose geometry is read at run time)
+CASCADE_SHAPES = {
+    "cascade": ((10, 10), (5, 5), (20, 20), (36, 36)),
+    "cascade_sp": ((10, 10), (6, 6), (8, 8), (20, 20), (36, 36)),
+}
 # K2's no-bomb case table: (R, C, K, B, (cookie, vertical laser, horizontal laser))
 NO_BOMB_SHAPES = ((10, 10, 4, 16384, (1, 1, 1)), (6, 6, 3, 1000, (0, 1, 1)),
-                  (8, 8, 4, 1000, (1, 0, 0)), (20, 20, 6, 1024, (1, 1, 1)))
+                  (8, 8, 4, 1000, (1, 0, 0)), (20, 20, 6, 1024, (1, 1, 1)),
+                  (36, 36, 6, 256, (1, 1, 1)))
 ALL_SPECIALS = (1, 1, 1, 1)
 NO_BOMB = (1, 1, 1, 0)
 MAIN_BATCH = 16384
@@ -73,9 +86,10 @@ SEED = 0
 # non-tensor float32 rate, used as the ceiling for the integer work
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# integer operations per refilled cell: 5 threefry-2x32 hashes of 20 rounds,
-# 3 operations a round
-OPS_PER_REFILL = 5 * 20 * 3
+# integer operations of the refill: 2 threefry-2x32 hashes of 20 rounds, 3
+# operations a round, per refilled cell, and 3 per board-trip for its keys
+OPS_PER_REFILL = 2 * 20 * 3
+OPS_PER_TRIP_KEYS = 3 * 20 * 3
 
 
 def check(cond, msg: str) -> None:
@@ -272,6 +286,13 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cascade_ops(cfg, refilled: int, trips: int) -> int:
+    """Integer operations a cascade's inputs need: the refill's hashes of
+    every refilled cell and the keys of every board-trip, and one a cell a
+    trip."""
+    return OPS_PER_REFILL * refilled + (OPS_PER_TRIP_KEYS + cfg.flat_size) * trips
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -308,7 +329,7 @@ def check_kernels(device, smi):
     # K1
     names = ("colour", "elim", "trips", "truncated", "mask")
     err = 0
-    for R, C, K, B in ((10, 10, 4, MAIN_BATCH), (5, 5, 3, 1000), (20, 20, 6, 1024)):
+    for R, C, K, B in ((10, 10, 4, MAIN_BATCH), (5, 5, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256)):
         cfg = _config(R, C, K)
         colour, sub = _random_inputs(R, C, K, B, seed=R * 1000 + B, device=device)
         got = cascade.fused_cascade(cfg, colour, sub)
@@ -322,7 +343,7 @@ def check_kernels(device, smi):
     out = cascade.fused_cascade(cfg1, colour, sub)
     ms = _time_ms(lambda: cascade.fused_cascade(cfg1, colour, sub), reps=20)
     plain_ms = _time_ms(lambda: cascade.cascade_reference(cfg1, colour, sub), reps=2)
-    ops = OPS_PER_REFILL * int(out[1].sum()) + cfg1.flat_size * int(out[2].sum())
+    ops = cascade_ops(cfg1, int(out[1].sum()), int(out[2].sum()))
     b_ms, b_by = bound(_nbytes(colour, sub, *out), ops)
     rec["fused_cascade"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"phase 3 ok: K1 10x10x4 B={MAIN_BATCH} uniform random boards: kernel {ms:.4f} ms, "
@@ -353,7 +374,7 @@ def check_kernels(device, smi):
     ms = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T), reps=20)
     plain_ms = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg3, *inputs, limit=T), reps=2)
     refilled = int((out[3] - inputs[4]).sum())
-    ops = OPS_PER_REFILL * refilled + cfg3.flat_size * int((out[2] - inputs[3]).sum())
+    ops = cascade_ops(cfg3, refilled, int((out[2] - inputs[3]).sum()))
     b_ms, b_by = bound(_nbytes(*inputs, *out), ops)
     rec["cascade_sp_chunk"] = dict(max_abs_err=err2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"phase 3 ok: K2 10x10x4 B={MAIN_BATCH} sprinkled boards: kernel {ms:.4f} ms, "
@@ -381,7 +402,7 @@ def check_kernels(device, smi):
             ms_nb = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=T), reps=20)
             plain_nb = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg, *inputs, limit=T), reps=2)
             refilled = int((got[3] - inputs[4]).sum())
-            ops = OPS_PER_REFILL * refilled + cfg.flat_size * int((got[2] - inputs[3]).sum())
+            ops = cascade_ops(cfg, refilled, int((got[2] - inputs[3]).sum()))
             b_nb, by_nb = bound(_nbytes(*inputs, *got), ops)
             print(f"phase 3 ok: {tag}: kernel {ms_nb:.4f} ms, plain {plain_nb:.4f} ms, "
                   f"bound {b_nb:.4f} ms ({by_nb}) ({smi})")
@@ -501,19 +522,29 @@ def main() -> int:
     from tile_match_tpu_torch import cuda_build
     from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
 
-    # 2. build, one nvcc per source, all at once
+    # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
-    sources = [src for _, src, _ in KERNELS.values()]
-    cuda_build.build_all(sources)
-    for src in sources:
-        cuda_build.load(src)
-    print(f"phase 2 ok: built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
-    for src in sources:
-        ptxas = " ".join(
-            ln.strip() for ln in cuda_build.build_logs.get(src, "").splitlines()
-            if "registers" in ln or "spill" in ln
-        )
-        print(f"phase 2: {src}: {ptxas or 'library up to date, not rebuilt'}")
+    libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in CASCADE_SHAPES.items()
+            for R, C in shapes] + [("mask_sp", None)]
+    cuda_build.build_all(libs)
+    stems = [src if shape is None else f"{src}-{shape[0]}x{shape[1]}" for src, shape in libs]
+    for lib in libs:
+        cuda_build.load(*lib)
+    print(f"phase 2 ok: built {', '.join(stems)} in {time.perf_counter() - t0:.1f} s")
+    for stem in stems:
+        log = cuda_build.build_logs.get(stem)
+        ptxas = cuda_build.ptxas_summary(log) if log else "library up to date, not rebuilt"
+        print(f"phase 2: {stem}: ptxas [board shape, registers, spill stores, spill loads] {ptxas}")
+    for name, (_, src, _) in KERNELS.items():
+        per_sm = {}
+        for R, C in ((10, 10), (36, 36)):
+            shape = cuda_build.shape_of(R, C) if src in CASCADE_SHAPES else None
+            fn = getattr(cuda_build.load(src, shape), f"tmt_{name}_occupancy")
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
+            per_sm[f"{R}x{C}"] = fn(R, C)
+        print(f"phase 2: {name}: boards in flight per SM {per_sm} "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     # 3. kernels against their plain versions
     rec = check_kernels(device, smi)

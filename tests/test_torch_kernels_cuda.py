@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv, random_effective
@@ -31,6 +32,16 @@ NAMES = ["colour", "elim", "trips", "trunc", "mask"]
 SP_NAMES = ["colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _libraries():
+    """Build every kernel library the tests run at once, one nvcc each (the
+    cascades take their board shape at compile time)."""
+    if torch.cuda.is_available():
+        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES}
+        cuda_build.build_all([(src, cuda_build.shape_of(R, C)) for src in ("cascade", "cascade_sp")
+                              for R, C in shapes] + ["mask_sp"])
+
+
 def _no_specials(R, C, K, moves=30, **kw):
     return EnvConfig.create(R, C, K, moves, colourless_specials=(), colour_specials=(), **kw)
 
@@ -42,13 +53,15 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+K1_SHAPES = [(10, 10, 4, 2048, 64), (5, 5, 3, 1000, 64), (20, 20, 6, 256, 64), (6, 6, 3, 130, 64),
+             (7, 9, 4, 300, 2), (32, 32, 5, 64, 64), (1, 8, 3, 50, 64), (8, 1, 3, 50, 64),
+             (36, 36, 6, 256, 64), (10, 10, 4, 8192, 64), (36, 36, 6, 8192, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "R,C,K,B,max_cascades",
-    [(10, 10, 4, 2048, 64), (5, 5, 3, 1000, 64), (20, 20, 6, 256, 64), (6, 6, 3, 130, 64),
-     (7, 9, 4, 300, 2), (32, 32, 5, 64, 64), (1, 8, 3, 50, 64), (8, 1, 3, 50, 64)],
-)
+@pytest.mark.parametrize("R,C,K,B,max_cascades", K1_SHAPES)
 def test_kernel_matches_plain_version(cuda_device, R, C, K, B, max_cascades):
+    """Four warps a board below 8192 boards, one from there on."""
     cfg = _no_specials(R, C, K, max_cascades=max_cascades)
     rng = np.random.default_rng(R * B + C)
     colour = torch.as_tensor(rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32), device=cuda_device)
@@ -72,9 +85,10 @@ def test_kernel_refuses_bad_input(cuda_device):
         tcas.fused_cascade(cfg, torch.ones((4, 6, 6), dtype=torch.int64, device=cuda_device), keys)
     with pytest.raises(ValueError):
         tcas.fused_cascade(cfg, torch.ones((4, 6, 6), dtype=torch.int32, device=cuda_device), keys[:3])
-    with pytest.raises(ValueError):
-        tcas.fused_cascade(_no_specials(40, 40, 4), torch.ones((4, 40, 40), dtype=torch.int32,
-                                                              device=cuda_device), keys)
+    # beyond the shared memory of a block (boards of more than 1024 cells run)
+    with pytest.raises(ValueError, match="shared memory"):
+        tcas.fused_cascade(_no_specials(200, 200, 4), torch.ones((4, 200, 200), dtype=torch.int32,
+                                                                device=cuda_device), keys)
 
 
 @pytest.mark.cuda
@@ -117,7 +131,7 @@ def _chip_smoke():
 
 
 SP_SHAPES = [(10, 10, 4, 2048, 64), (6, 6, 3, 130, 64), (8, 8, 4, 300, 2), (20, 20, 6, 256, 64),
-             (32, 32, 5, 64, 64)]
+             (32, 32, 5, 64, 64), (36, 36, 6, 256, 64)]
 
 
 @pytest.mark.cuda
@@ -141,7 +155,8 @@ NO_BOMB_SETS = {
     "cookie-hlaser": (("cookie",), ("horizontal_laser",)),
 }
 NB_CASES = [(10, 10, 4, 2048, "cookie-lasers"), (6, 6, 3, 1000, "lasers"), (8, 8, 4, 1000, "cookie"),
-            (20, 20, 6, 256, "cookie-lasers"), (7, 9, 3, 300, "cookie-hlaser")]
+            (20, 20, 6, 256, "cookie-lasers"), (7, 9, 3, 300, "cookie-hlaser"),
+            (36, 36, 6, 256, "cookie-lasers")]
 
 
 @pytest.mark.cuda
@@ -221,6 +236,29 @@ def test_specials_env_on_card_equals_env_on_cpu(cuda_device, R, C, K, B, moves, 
                          ts.info.effective_actions, ts.info.cascade_trips,
                          ts.info.num_new_specials, ts.info.num_specials_activated,
                          ts.info.truncated, ts.done])
+        out[str(dev)] = [[x.cpu() for x in row] for row in rows]
+    for a, b in zip(*out.values()):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("specials", ["none", "all"])
+def test_large_board_env_on_card_equals_env_on_cpu(cuda_device, specials):
+    """36x36 boards (1,296 cells) step through the kernels on the card."""
+    kw = {"colourless_specials": (), "colour_specials": ()} if specials == "none" else {}
+    cfg = _specials(36, 36, 6, moves=2, **kw)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        env = BatchedTileMatchEnv(cfg, 8, dev)
+        key = trandom.PRNGKey(9, dev)
+        states, ts = env.reset(key)
+        rows = []
+        for t in range(3):
+            key, ka = trandom.split(key).unbind(0)
+            states, ts = env.step(states, random_effective(ka, ts))
+            rows.append([states.colour, states.kind, ts.reward, ts.info.effective_actions,
+                         ts.info.cascade_trips, ts.done])
         out[str(dev)] = [[x.cpu() for x in row] for row in rows]
     for a, b in zip(*out.values()):
         for x, y in zip(a, b):

@@ -1,19 +1,26 @@
 """The CUDA kernels' board programs, built for the host, equal the plain
 PyTorch versions exactly.
 
-``csrc/cascade_sp.cu`` and ``csrc/mask_sp.cu`` write each kernel as a
-sequence of per-cell phases (``csrc/block.cuh``); compiled as plain C++
-with ``-DTMT_HOST_BUILD`` the same phases run as loops over the cells of
-one board after another.  This holds the kernels' arithmetic against
-``cascade_sp_reference`` and ``effective_mask_settled`` without a card;
+``csrc/cascade.cu``, ``csrc/cascade_sp.cu`` and ``csrc/mask_sp.cu`` write
+each kernel as a sequence of per-cell phases on the executors of
+``csrc/block.cuh``; compiled as plain C++ with ``-DTMT_HOST_BUILD`` the
+same phases run as loops over the cells of one board after another, with
+the bit helpers on the compiler's builtins.  This holds the kernels'
+arithmetic against ``cascade_reference``, ``cascade_sp_reference`` and
+``effective_mask_settled`` without a card, at boards above 1024 cells and
+on painted boards whose runs touch the edges of rows and columns that
+straddle the 32-bit words of the cell masks;
 ``test_torch_kernels_cuda.py`` holds the kernels themselves on the card.
 Needs ``g++``; skips without it.
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_kernels_host.py -q
 """
 
 import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +29,7 @@ from tests.test_torch_specials import sprinkled
 from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.cuda_build import CSRC
+from tile_match_tpu_torch.ops.cascade import cascade_reference
 from tile_match_tpu_torch.ops.cascade_sp import cascade_sp_reference
 from tile_match_tpu_torch.ops.effective import effective_mask_settled
 
@@ -36,26 +44,50 @@ LASERS = ((), ("vertical_laser", "horizontal_laser"))
 COOKIE = (("cookie",), ())
 COOKIE_V = (("cookie",), ("vertical_laser",))
 NAMES = ["colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons"]
+K1_NAMES = ["colour", "elim", "trips", "truncated", "mask"]
+
+
+def _host_build(tmp_path_factory, name, shape=None):
+    """The board programs of ``csrc/<name>.cu`` built for the host: with
+    ``shape`` = (R, C) the library of that board shape (its geometry fixed
+    at compile time, as the card's libraries of boards up to 32 by 32),
+    else the one whose geometry is read at run time (any board)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' board programs for the host")
+    defines = [] if shape is None else [f"-DTMT_ROWS={shape[0]}", f"-DTMT_COLS={shape[1]}"]
+    so = tmp_path_factory.mktemp("host_build") / f"lib{name}_host.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-x", "c++", "-DTMT_HOST_BUILD", *defines, "-shared", "-fPIC",
+         "-I", str(CSRC), "-o", str(so), str(CSRC / f"{name}.cu")],
+        check=True, capture_output=True, text=True,
+    )
+    return ctypes.CDLL(str(so))
+
+
+def _k1_fn(lib):
+    k1 = lib.tmt_fused_cascade_host
+    k1.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    k1.restype = ctypes.c_int
+    return k1
+
+
+def _k2_fn(lib):
+    k2 = lib.tmt_cascade_sp_host
+    k2.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+    k2.restype = ctypes.c_int
+    return k2
+
+
+@pytest.fixture(scope="module")
+def host_k1(tmp_path_factory):
+    return _k1_fn(_host_build(tmp_path_factory, "cascade"))
 
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels' board programs for the host")
-    out = tmp_path_factory.mktemp("host_build")
-    libs = {}
-    for name in ("cascade_sp", "mask_sp"):
-        so = out / f"lib{name}_host.so"
-        subprocess.run(
-            [gxx, "-O2", "-std=c++17", "-x", "c++", "-DTMT_HOST_BUILD", "-shared", "-fPIC",
-             "-I", str(CSRC), "-o", str(so), str(CSRC / f"{name}.cu")],
-            check=True, capture_output=True, text=True,
-        )
-        libs[name] = ctypes.CDLL(str(so))
-    k2 = libs["cascade_sp"].tmt_cascade_sp_host
-    k2.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
-    k2.restype = ctypes.c_int
+    libs = {name: _host_build(tmp_path_factory, name) for name in ("cascade_sp", "mask_sp")}
+    k2 = _k2_fn(libs["cascade_sp"])
     k3 = libs["mask_sp"].tmt_settled_mask_sp_host
     k3.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
     k3.restype = ctypes.c_int
@@ -131,7 +163,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     names = ("cascade", "cascade_sp", "mask_sp")
     assert {p.name for p in cuda_build.sources("cascade_sp")} == {
-        "cascade_sp.cu", "block.cuh", "threefry.cuh"
+        "cascade_sp.cu", "trip.cuh", "block.cuh", "threefry.cuh"
     }
     before = {n: cuda_build.digest(n) for n in names}
     with open(tmp_path / "mask.cuh", "a") as f:
@@ -142,3 +174,181 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     with open(tmp_path / "block.cuh", "a") as f:  # included through mask.cuh / threefry.cuh
         f.write("// edited\n")
     assert all(cuda_build.digest(n) != after[n] for n in names)
+    # a board shape is a library of its own
+    assert len({cuda_build.digest("cascade", shape) for shape in (None, (10, 10), (10, 9))}) == 3
+
+
+def _k1_run(k1, cfg, colour, keys):
+    B, R, C = colour.shape
+    got = [torch.empty_like(colour), torch.empty(B, dtype=torch.int32),
+           torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.bool),
+           torch.empty(B, cfg.num_actions, dtype=torch.bool)]
+    err = k1(colour.data_ptr(), keys.data_ptr(), *(t.data_ptr() for t in got),
+             B, R, C, cfg.num_colours, cfg.max_cascades)
+    assert err == 0
+    return got
+
+
+def _k2_run(k2, cfg, inputs, limit):
+    colour = inputs[0]
+    B, R, C = colour.shape
+    got = [torch.empty_like(colour), torch.empty_like(inputs[1])]
+    got += [torch.empty(B, dtype=torch.int32) for _ in range(5)]
+    got += [torch.empty(B, dtype=torch.bool), torch.empty(B, dtype=torch.int32)]
+    err = k2(*(t.data_ptr() for t in inputs), *(t.data_ptr() for t in got),
+             B, R, C, cfg.num_colours, cfg.max_cascades, limit,
+             int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb))
+    assert err == 0
+    return got
+
+
+def _k1_inputs(R, C, K, B, seed):
+    rng = np.random.default_rng(seed)
+    colour = torch.from_numpy(rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32))
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64))
+    return colour, keys
+
+
+@pytest.mark.parametrize("R,C,K,B,max_cascades",
+                         [(5, 5, 3, 64, 64), (10, 10, 4, 64, 64), (20, 20, 6, 32, 64),
+                          (7, 9, 4, 64, 2), (1, 8, 3, 16, 64), (8, 1, 3, 16, 64),
+                          (36, 36, 6, 8, 64), (6, 32, 1, 4, 3), (32, 6, 1, 4, 3)])
+def test_cascade_board_program_matches_plain(host_k1, R, C, K, B, max_cascades):
+    """K1's board program, 36x36 (1,296 cells) above the old one-thread-per-cell cap;
+    with one colour, every row and column one run of 32 cells at 6x32 and 32x6."""
+    cfg = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=(),
+                           max_cascades=max_cascades)
+    colour, keys = _k1_inputs(R, C, K, B, seed=R * C + B)
+    got = _k1_run(host_k1, cfg, colour, keys)
+    want = cascade_reference(cfg, colour, keys)
+    for name, g, w in zip(K1_NAMES, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_cascade_sp_board_program_above_old_cap(host_libs):
+    """K2 with and without the bomb and K3 at 36x36x6 (1,296 cells)."""
+    k2, k3 = host_libs
+    for specials, limit in ((ALL, 64), (NO_BOMB, 64)):
+        cfg = EnvConfig.create(36, 36, 6, 30, colourless_specials=specials[0],
+                               colour_specials=specials[1])
+        inputs = _inputs(cfg, 8, seed=36 + len(specials[1]))
+        got = _k2_run(k2, cfg, inputs, limit)
+        want = cascade_sp_reference(cfg, *inputs, limit=limit)
+        for name, g, w in zip(NAMES, got, want):
+            assert torch.equal(g, w), (specials, name)
+        mask = torch.empty(8, cfg.num_actions, dtype=torch.bool)
+        assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), 8, 36, 36, 1) == 0
+        assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
+
+
+def painted_edges(R, C, B, seed, specials=False, longest=8):
+    """Line-free two-colour boards (colours 1 and 2) with one to three
+    painted runs of colour 3 or 4, 3 to ``longest`` cells each, each on an
+    edge: starting in column 0, ending in column C-1, in row R-1, starting
+    in row 0 or ending in row R-1.  With ``specials`` a third of the
+    painted cells become a vertical or horizontal laser or a bomb."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.indices((R, C))
+    colour = np.where((rows + cols) % 2 == 0, 1, 2)[None].repeat(B, 0).astype(np.int32)
+    kind = np.ones_like(colour)
+    for b in range(B):
+        painted = np.zeros((R, C), bool)
+        for _ in range(int(rng.integers(1, 4))):
+            pc = int(rng.integers(3, 5))
+            if rng.random() < 0.5:
+                n = int(rng.integers(3, min(C, longest) + 1))
+                r = R - 1 if rng.random() < 0.5 else int(rng.integers(0, R))
+                c0 = 0 if rng.random() < 0.5 else C - n
+                colour[b, r, c0:c0 + n] = pc
+                painted[r, c0:c0 + n] = True
+            else:
+                n = int(rng.integers(3, min(R, longest) + 1))
+                c = int(rng.choice([0, C - 1, int(rng.integers(0, C))]))
+                r0 = R - n if rng.random() < 0.5 else 0
+                colour[b, r0:r0 + n, c] = pc
+                painted[r0:r0 + n, c] = True
+        if specials:
+            cells = np.flatnonzero(painted & (rng.random((R, C)) < 1 / 3))
+            kind[b].reshape(-1)[cells] = rng.choice(np.array([2, 3, 4], np.int32), size=cells.size)
+    return torch.from_numpy(colour), torch.from_numpy(kind)
+
+
+# rows or columns that straddle the 32-bit words of the row-major and
+# column-major cell masks: a row or column of 32 cells, the most the
+# kernels' one-window bit helpers take (6x32, 32x6), and of 33 or more, on
+# the helpers that loop over the words; the repo's configs' shapes (10x10,
+# 20x20)
+EDGE_SHAPES = [(5, 33, 4), (34, 6, 4), (3, 40, 4), (40, 3, 4), (6, 32, 4), (32, 6, 4),
+               (9, 7, 4), (10, 10, 4), (20, 20, 6)]
+
+
+@pytest.mark.parametrize("R,C,K", EDGE_SHAPES)
+def test_painted_edges_match_plain(host_k1, host_libs, R, C, K):
+    """Runs touching column 0, column C-1, row 0 and row R-1: K1, K2 with
+    and without the bomb (lasers and bombs in the painted runs) and K3."""
+    B = 48
+    k2, k3 = host_libs
+    colour, _ = painted_edges(R, C, B, seed=R * C)
+    keys = torch.arange(2 * B, dtype=torch.int64).reshape(B, 2)
+    cfg1 = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=())
+    for name, g, w in zip(K1_NAMES, _k1_run(host_k1, cfg1, colour, keys),
+                          cascade_reference(cfg1, colour, keys)):
+        assert torch.equal(g, w), ("K1", name)
+    colour, kind = painted_edges(R, C, B, seed=R * C + 1, specials=True)
+    z = torch.zeros(B, dtype=torch.int32)
+    for specials in (ALL, LASERS):
+        cfg = EnvConfig.create(R, C, K, 30, colourless_specials=specials[0],
+                               colour_specials=specials[1])
+        inputs = (colour, kind, keys, z, z, z)
+        got = _k2_run(k2, cfg, inputs, 64)
+        want = cascade_sp_reference(cfg, *inputs, limit=64)
+        for name, g, w in zip(NAMES, got, want):
+            assert torch.equal(g, w), (specials, name)
+        assert int(want[5].sum()) > 0  # specials activated
+        mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
+        assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), B, R, C, 1) == 0
+        assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
+
+
+# the card builds the cascades once for each board shape of at most 32 by
+# 32, with the geometry fixed at compile time; these hold those libraries
+# at a config's shape, at rows and columns of 32 cells (the most one 32-bit
+# window of a mask takes) and at an odd shape
+@pytest.mark.parametrize("R,C", [(10, 10), (6, 32), (32, 6), (9, 7)])
+def test_fixed_geometry_matches_plain(tmp_path_factory, R, C):
+    """K1 (random boards, one-colour boards whose rows and columns are each
+    one run, painted runs of up to 32 cells on the edges) and K2 with and
+    without the bomb (sprinkled and painted boards) built for one board
+    shape; another shape is refused."""
+    k1 = _k1_fn(_host_build(tmp_path_factory, "cascade", (R, C)))
+    k2 = _k2_fn(_host_build(tmp_path_factory, "cascade_sp", (R, C)))
+    B = 32
+    for K, colour, keys, max_cascades in (
+        (4, *_k1_inputs(R, C, 4, B, seed=R * C), 64),
+        (1, *_k1_inputs(R, C, 1, 4, seed=1), 3),
+        (4, painted_edges(R, C, B, seed=R + C, longest=32)[0],
+         torch.arange(2 * B, dtype=torch.int64).reshape(B, 2), 64),
+    ):
+        cfg = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=(),
+                               max_cascades=max_cascades)
+        for name, g, w in zip(K1_NAMES, _k1_run(k1, cfg, colour, keys),
+                              cascade_reference(cfg, colour, keys)):
+            assert torch.equal(g, w), ("K1", K, name)
+    painted, kind = painted_edges(R, C, B, seed=R * C + 2, specials=True, longest=32)
+    z = torch.zeros(B, dtype=torch.int32)
+    for specials in (ALL, NO_BOMB):
+        cfg = EnvConfig.create(R, C, 4, 30, colourless_specials=specials[0],
+                               colour_specials=specials[1])
+        for inputs in (_inputs(cfg, B, seed=R * C + len(specials[1])),
+                       (painted, kind, torch.arange(2 * B, dtype=torch.int64).reshape(B, 2),
+                        z, z, z)):
+            got = _k2_run(k2, cfg, inputs, 64)
+            for name, g, w in zip(NAMES, got, cascade_sp_reference(cfg, *inputs, limit=64)):
+                assert torch.equal(g, w), (specials, name)
+    other = torch.ones(1, R + 1, C, dtype=torch.int32)
+    out = [torch.empty_like(other), *(torch.empty(1, dtype=t) for t in (torch.int32, torch.int32,
+                                                                       torch.bool)),
+           torch.empty(1, 2 * (R + 1) * C, dtype=torch.bool)]
+    keys = torch.zeros(1, 2, dtype=torch.int64)
+    assert k1(other.data_ptr(), keys.data_ptr(), *(t.data_ptr() for t in out),
+              1, R + 1, C, 4, 64) == -1

@@ -1,200 +1,190 @@
-// Fused no-specials cascade for Hopper (sm_90a), one thread block per board.
+// Fused no-specials cascade for Hopper (sm_90a), one or four warps a board.
 //
 // Replaces the TPU kernel `fused_cascade` of
-// tile_match_tpu/ops/pallas_cascade.py (body `_cascade_kernel`, with the
-// helpers `_union_mask_tile`, `_gravity_tile`, `_fill_tile`/`_tf2x32_tile`,
-// `_active_tile` and `_settled_mask_tile`).  Its plain PyTorch version is
-// `cascade_reference` in tile_match_tpu_torch/ops/cascade.py, and the
-// outputs of the two are equal bit for bit.
+// tile_match_tpu/ops/pallas_cascade.py:1107 (call :1132, body
+// `_cascade_kernel` :1065, with the helpers `_union_mask_tile`,
+// `_gravity_tile`, `_fill_tile`/`_tf2x32_tile`, `_active_tile` and
+// `_settled_mask_tile`).  Its plain PyTorch version is `cascade_reference`
+// in tile_match_tpu_torch/ops/cascade.py, and the outputs of the two are
+// equal bit for bit.
 //
 // What it computes, per board: while the board holds a >= 3 same-colour run
-// and fewer than `max_cascades` trips have run, one cascade trip —
-//   1. run lengths of every cell along its row and column;
-//   2. the lowest row that anchors a line (block max-reduction);
-//   3. the primary cells (horizontal runs in that row, vertical runs whose
-//      bottom cell is in it) and the >= 3 extension segments through them;
-//   4. delete that union and count it;
-//   5. stable gravity per column (empties to the top);
-//   6. refill the empties with randint(fold_in(sub, t), (R, C), 1, K + 1),
-//      JAX's partitionable threefry-2x32 computed per cell in-kernel
-//      (csrc/threefry.cuh).
-// Then the settled effective-action mask: 8 colour stencils per swap, one
-// thread per action, in action-table order (down-swaps, then right-swaps);
-// the stencils are csrc/mask.cuh, shared with the specials mask kernel.
+// and fewer than `max_cascades` trips have run, one cascade trip — detect
+// the lines and delete their union, count it, stable gravity per column,
+// refill the empties with randint(fold_in(sub, t), (R, C), 1, K + 1) — the
+// phases K2 shares (csrc/trip.cuh) without the kind channel and the case
+// table.  Then the settled effective-action mask: 8 colour stencils per
+// swap (csrc/mask.cuh), the actions looped over the lanes in action-table
+// order (down-swaps, then right-swaps).
 //
-// What bounds it on the card: not memory — a 10x10 board is 400 bytes in and
-// about 600 bytes out.  Each trip is a handful of short scans over shared
-// memory, three block barriers and, for refilled cells, five threefry hashes
-// of 20 rounds; the cost is integer issue and barrier latency, times each
-// board's own number of trips.  The design keeps the board in shared memory
-// for the whole cascade and gives each board its own block, so a board stops
-// after its own last trip instead of running in lockstep with a tile of other
-// boards (the TPU kernel's lanes ran the tile's maximum).  The TPU's
-// batch-on-lanes transposes, trip chunks and precomputed key words are gone.
+// What bounds it on the card: not memory — a 10x10 board is 400 bytes in
+// and about 600 bytes out, a 0.005 ms bound at B=16384.  A trip is ~8
+// dependent warp phases on the board in shared memory plus a hash a
+// refilled cell, and a board runs its trips one after another: latency,
+// times each board's own trips, and a launch lasts at least as long as its
+// longest board.  The design: a board on one warp, or on four when the
+// launch has fewer than 8,192 boards (`Warps`, csrc/block.cuh): 32 or 8
+// boards in flight per SM, each freeing its slot after its own last trip,
+// with warp votes for the reductions (and, on four warps, a barrier a
+// phase); the board's
+// shape fixed at compile time for each shape of at most 32 by 32 (one
+// library a shape, `Geometry` in csrc/trip.cuh), read at run time above
+// that; the lowest anchoring row, run lengths, extension reaches and the
+// union cover from row-major and column-major cell bit masks in place of
+// walks; the refill keys of 32 trips hashed at once, and each empty cell's
+// two hashes on a pair of lanes.  The TPU's batch-on-lanes transposes,
+// trip chunks and precomputed key words are gone.
 //
-// Limits: R * C <= 1024 (one thread per cell); kind is all-normal, as on
+// Limits: the board's working set fits a block's shared memory (2,032
+// bytes at 10x10, ~13 bytes a cell at 36x36); kind is all-normal, as on
 // every no-specials board.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include "mask.cuh"
-#include "threefry.cuh"
+#include "trip.cuh"
 
-namespace {
+namespace tmt {
 
-constexpr int kNoReach = 1 << 20;
+// Warps a board: a launch of fewer than kFewBoards boards runs kWarpsFew
+// warps a board, its boards' latency being what counts (a Gym step runs
+// one board: a lone board's trip is ~2x faster on four warps than on
+// one); a larger one kWarpsMany, the most boards in flight.  Measured on
+// the H100 against two warps a board (PERF.md §6).
+constexpr int kWarpsFew = 4, kWarpsMany = 1, kFewBoards = 8192;
 
-__global__ void cascade_kernel(const int* __restrict__ colour_in,
-                               const long long* __restrict__ sub_keys,
-                               int* __restrict__ colour_out, int* __restrict__ elim_out,
-                               int* __restrict__ trips_out, bool* __restrict__ trunc_out,
-                               bool* __restrict__ mask_out, int R, int C, int K,
-                               int max_cascades, uint32_t mult) {
-  extern __shared__ int smem[];
-  const int n = R * C;
-  int* x = smem;        // the board
-  int* y = x + n;       // gravity output
-  int* hlo = y + n;     // horizontal extension reach of a generator cell
-  int* hhi = hlo + n;
-  int* vlo = hhi + n;   // vertical extension reach
-  int* vhi = vlo + n;
-  unsigned char* prim = reinterpret_cast<unsigned char*>(vhi + n);
-  __shared__ int s_row;
+// Shared memory of one board.
+template <class Ln>
+struct CascadeSmem {
+  Ln L;
+  int *x, *y;     // the board, and the board after the delete
+  uint16_t* q;    // compacted empty cells
+  uint32_t* emp;  // empty cells (cm)
+  uint32_t* keys; // KeyRing words
+  int* red;       // the executor's reductions across warps
 
-  const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  const bool live = i < n;
-  const int r = live ? i / C : 0;
-  const int c = live ? i % C : 0;
-  const uint32_t s0 = static_cast<uint32_t>(sub_keys[2 * b]);
-  const uint32_t s1 = static_cast<uint32_t>(sub_keys[2 * b + 1]);
+  TMT_HOST_DEV size_t carve(unsigned char* base, int R, int C) {
+    const int n = R * C;
+    Arena a{base, 0};
+    L.carve(a, R, C);
+    x = a.take<int>(n);
+    y = a.take<int>(n);
+    q = a.take<uint16_t>(n);
+    emp = a.take<uint32_t>(mask_words(n));
+    keys = a.take<uint32_t>(4 * 32);
+    red = a.take<int>(kWarpsFew);
+    return a.used;
+  }
+};
 
-  if (live) x[i] = colour_in[static_cast<size_t>(b) * n + i];
-  __syncthreads();
+template <class Ln>
+TMT_HOST_DEV size_t cascade_smem_bytes(int R, int C) {
+  CascadeSmem<Ln> s;
+  return s.carve(nullptr, R, C);
+}
 
-  int elim = 0;
-  int t = 0;
+struct CascadeState {
+  int elim, trips;
   bool lined;
+};
+
+// The board's cascade; s.x holds the board on entry and on exit.
+template <class W, class Ln>
+TMT_DEV void cascade_program(const W& w, const CascadeSmem<Ln>& s, int K, int max_cascades,
+                             uint32_t key0, uint32_t key1, CascadeState& st) {
+  const Ln& L = s.L;
+  const int n = L.n();
+  const uint32_t mult = randint_mult(static_cast<uint32_t>(K));
+  int* x = s.x;
+  KeyRing ring{s.keys, -1};
+  st.elim = 0;
+  st.trips = 0;
   while (true) {
-    // does any >= 3 run remain?
-    bool starts_run = false;
-    if (live) {
-      const int v = x[i];
-      if (v > 0) {
-        if (c + 2 < C && x[i + 1] == v && x[i + 2] == v) starts_run = true;
-        if (r + 2 < R && x[i + C] == v && x[i + 2 * C] == v) starts_run = true;
-      }
-    }
-    lined = __syncthreads_or(starts_run);
-    if (!lined || t >= max_cascades) break;
-
-    // run lengths through this cell
-    const int v = live ? x[i] : 0;
-    const bool valid = v > 0;
-    int lc = 0, rc = 0, uc = 0, dc = 0;
-    if (live && valid) {
-      for (int q = c - 1; q >= 0 && x[r * C + q] == v; --q) ++lc;
-      for (int q = c + 1; q < C && x[r * C + q] == v; ++q) ++rc;
-      for (int q = r - 1; q >= 0 && x[q * C + c] == v; --q) ++uc;
-      for (int q = r + 1; q < R && x[q * C + c] == v; ++q) ++dc;
-    }
-    const bool h3 = valid && lc + rc + 1 >= 3;
-    const bool v3 = valid && uc + dc + 1 >= 3;
-
-    // the lowest row anchoring a line
-    if (i == 0) s_row = -1;
-    __syncthreads();
-    if (h3 || (v3 && dc == 0)) atomicMax(&s_row, r);
-    __syncthreads();
-    const int sr0 = s_row;
-
-    // primary cells: horizontal runs in row sr0, vertical runs ending there
-    const bool is_prim = (h3 && r == sr0) || (v3 && r + dc == sr0);
-    if (live) prim[i] = is_prim;
-    __syncthreads();
-
-    // extension segments through each primary cell: the same-colour,
-    // non-primary chain on either side; a generator covers its chain if the
-    // segment is >= 3 long
-    if (live) {
-      int lo_h = kNoReach, hi_h = -1, lo_v = kNoReach, hi_v = -1;
-      if (is_prim) {
-        int le = 0, re = 0, ue = 0, de = 0;
-        for (int q = c - 1; q >= 0 && !prim[r * C + q] && x[r * C + q] == v; --q) ++le;
-        for (int q = c + 1; q < C && !prim[r * C + q] && x[r * C + q] == v; ++q) ++re;
-        for (int q = r - 1; q >= 0 && !prim[q * C + c] && x[q * C + c] == v; --q) ++ue;
-        for (int q = r + 1; q < R && !prim[q * C + c] && x[q * C + c] == v; ++q) ++de;
-        if (1 + le + re >= 3) { lo_h = c - le; hi_h = c + re; }
-        if (1 + ue + de >= 3) { lo_v = r - ue; hi_v = r + de; }
-      }
-      hlo[i] = lo_h;
-      hhi[i] = hi_h;
-      vlo[i] = lo_v;
-      vhi[i] = hi_v;
-    }
-    __syncthreads();
-
-    bool del = is_prim;
-    if (live && valid && !del) {
-      for (int q = 0; q < C && !del; ++q) {
-        const int p = r * C + q;
-        del = hlo[p] <= c && c <= hhi[p];
-      }
-      for (int q = 0; q < R && !del; ++q) {
-        const int p = q * C + c;
-        del = vlo[p] <= r && r <= vhi[p];
-      }
-    }
-    elim += __syncthreads_count(live && del);
-    if (live && del) x[i] = 0;
-    __syncthreads();
-
-    // stable gravity: an empty cell lands at the number of empties above it,
-    // a tile moves down by the number of empties below it
-    if (live) {
-      const int w = x[i];
-      int dest = 0;
-      if (w == 0) {
-        for (int q = 0; q < r; ++q) dest += x[q * C + c] == 0;
-      } else {
-        dest = r;
-        for (int q = r + 1; q < R; ++q) dest += x[q * C + c] == 0;
-      }
-      y[dest * C + c] = w;
-    }
-    __syncthreads();
-
-    if (live) {
-      const int w = y[i];
-      x[i] = w != 0 ? w
-                    : tmt::refill_colour(s0, s1, static_cast<uint32_t>(t),
-                                    static_cast<uint32_t>(i),
-                                    static_cast<uint32_t>(K), mult);
-    }
-    ++t;
-    __syncthreads();
-  }
-
-  if (live) colour_out[static_cast<size_t>(b) * n + i] = x[i];
-  if (i == 0) {
-    elim_out[b] = elim;
-    trips_out[b] = t;
-    trunc_out[b] = lined;
-  }
-
-  // settled effective-action mask (csrc/mask.cuh); kind is all-normal
-  const int A = 2 * n - R - C;
-  auto at = [&](int rr, int cc) -> int {
-    return (rr >= 0 && rr < R && cc >= 0 && cc < C) ? x[rr * C + cc] : -1;
-  };
-  auto normal = [](int, int) -> int { return 1; };
-  for (int a = i; a < A; a += blockDim.x) {
-    mask_out[static_cast<size_t>(b) * A + a] = tmt::settled_action(a, R, C, at, normal, false);
+    const int sr0 = line_masks(w, L, x);
+    st.lined = sr0 >= 0;
+    if (!st.lined || st.trips >= max_cascades) break;
+    detect(w, L, sr0);
+    // delete the union into y, then gravity
+    int del = 0;
+    gravity(w, L, s.y, nullptr, x, nullptr, s.emp, [&](int i) {
+      bool cov_h, cov_v;
+      L.cover(x, i, cov_h, cov_v);
+      const bool d = bit(L.p, i) || ((cov_h || cov_v) && x[i] > 0);
+      del += d;
+      s.y[i] = d ? 0 : x[i];
+      return d;
+    });
+    st.elim += w.lanes_sum(del);
+    refill(w, n, x, nullptr, s.q, ring, key0, key1, st.trips, static_cast<uint32_t>(K), mult);
+    st.trips += 1;
   }
 }
 
+// The settled effective-action mask of the board in x (kind all-normal).
+template <class W, class Ln>
+TMT_DEV void cascade_mask(const W& w, const Ln& L, const int* x, bool* mask) {
+  const int R = L.R(), C = L.C();
+  auto at = [&](int r, int c) -> int {
+    return (r >= 0 && r < R && c >= 0 && c < C) ? x[r * C + c] : -1;
+  };
+  auto normal = [](int, int) -> int { return 1; };
+  w.each_of(2 * R * C - R - C, [&](int a) { mask[a] = settled_action(a, R, C, at, normal, false); });
+}
+
+}  // namespace tmt
+
+#ifdef __CUDACC__
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// 32 warps an SM (32 / kW boards): ptxas keeps each thread within 64
+// registers
+template <class Ln, int kW>
+__global__ void __launch_bounds__(32 * kW, 32 / kW)
+    cascade_kernel(const int* __restrict__ colour_in, const long long* __restrict__ sub_keys,
+                   int* __restrict__ colour_out, int* __restrict__ elim_out,
+                   int* __restrict__ trips_out, bool* __restrict__ trunc_out,
+                   bool* __restrict__ mask_out, int R, int C, int K, int max_cascades) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t b = blockIdx.x;
+  tmt::CascadeSmem<Ln> s;
+  s.carve(smem, R, C);
+  const int n = s.L.n();
+  const tmt::Warps<kW> w{n, static_cast<int>(threadIdx.x), s.red};
+  w.each([&](int i) { s.x[i] = colour_in[b * n + i]; });
+  tmt::CascadeState st;
+  tmt::cascade_program(w, s, K, max_cascades, static_cast<uint32_t>(sub_keys[2 * b]),
+                       static_cast<uint32_t>(sub_keys[2 * b + 1]), st);
+  w.each([&](int i) { colour_out[b * n + i] = s.x[i]; });
+  if (w.leader()) {
+    elim_out[b] = st.elim;
+    trips_out[b] = st.trips;
+    trunc_out[b] = st.lined;
+  }
+  tmt::cascade_mask(w, s.L, s.x, mask_out + b * (2 * n - s.L.R() - s.L.C()));
+}
+
+const auto kernel_many = cascade_kernel<tmt::Geometry, tmt::kWarpsMany>;
+const auto kernel_few = cascade_kernel<tmt::Geometry, tmt::kWarpsFew>;
+
 }  // namespace
+
+// Shared memory of one board, in bytes.
+extern "C" long long tmt_fused_cascade_smem(int R, int C) {
+  return static_cast<long long>(tmt::cascade_smem_bytes<tmt::Geometry>(R, C));
+}
+
+// Boards in flight per SM at R x C in a launch of kFewBoards boards or
+// more, from the occupancy calculator (0 when a board does not fit).
+extern "C" int tmt_fused_cascade_occupancy(int R, int C) {
+  const size_t smem = tmt::cascade_smem_bytes<tmt::Geometry>(R, C);
+  int blocks = 0;
+  if (!tmt::takes(R, C) || tmt::allow_smem(kernel_many, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_many, 32 * tmt::kWarpsMany,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
 
 // Launches the cascade for B boards on `stream`; returns the cudaError_t of
 // the launch (0 on success).  colour_in/colour_out: int32[B, R, C];
@@ -205,13 +195,46 @@ extern "C" int tmt_fused_cascade(const int* colour_in, const long long* sub_keys
                                  bool* mask, int B, int R, int C, int K, int max_cascades,
                                  void* stream) {
   if (B == 0) return 0;
-  const int n = R * C;
-  if (n > 1024 || R < 1 || C < 1 || K < 1 || K > 65535) return cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(n) * (6 * sizeof(int) + 1);
-  const uint32_t mult = tmt::randint_mult(static_cast<uint32_t>(K));
-  cascade_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      colour_in, sub_keys, colour_out, elim, trips, truncated, mask, R, C, K,
-      max_cascades, mult);
+  if (!tmt::takes(R, C) || R * C > 65535 || K < 1 || K > 65535) return cudaErrorInvalidValue;
+  const size_t smem = tmt::cascade_smem_bytes<tmt::Geometry>(R, C);
+  const bool few = B < tmt::kFewBoards;
+  const auto kernel = few ? kernel_few : kernel_many;
+  const cudaError_t err = tmt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, 32 * (few ? tmt::kWarpsFew : tmt::kWarpsMany), smem,
+           static_cast<cudaStream_t>(stream)>>>(colour_in, sub_keys, colour_out, elim, trips,
+                                                truncated, mask, R, C, K, max_cascades);
   return static_cast<int>(cudaGetLastError());
 }
+
+#else  // host build (TMT_HOST_BUILD): the same board program, board by board
+
+#include <vector>
+
+// As tmt_fused_cascade, on the host; returns 0, or -1 for a board shape the
+// library's geometry does not take.
+extern "C" int tmt_fused_cascade_host(const int* colour_in, const long long* sub_keys,
+                                      int* colour_out, int* elim, int* trips, bool* truncated,
+                                      bool* mask, int B, int R, int C, int K, int max_cascades) {
+  if (!tmt::takes(R, C)) return -1;
+  const int n = R * C;
+  const size_t A = 2 * n - R - C;
+  const tmt::Warp w{n};
+  std::vector<uint64_t> smem(tmt::cascade_smem_bytes<tmt::Geometry>(R, C) / 8 + 2);
+  tmt::CascadeSmem<tmt::Geometry> s;
+  s.carve(reinterpret_cast<unsigned char*>(smem.data()), R, C);
+  for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
+    for (int i = 0; i < n; ++i) s.x[i] = colour_in[b * n + i];
+    tmt::CascadeState st;
+    tmt::cascade_program(w, s, K, max_cascades, static_cast<uint32_t>(sub_keys[2 * b]),
+                         static_cast<uint32_t>(sub_keys[2 * b + 1]), st);
+    for (int i = 0; i < n; ++i) colour_out[b * n + i] = s.x[i];
+    elim[b] = st.elim;
+    trips[b] = st.trips;
+    truncated[b] = st.lined;
+    tmt::cascade_mask(w, s.L, s.x, mask + b * A);
+  }
+  return 0;
+}
+
+#endif

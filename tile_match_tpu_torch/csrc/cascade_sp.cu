@@ -1,24 +1,23 @@
-// The specials cascade's simple trips for Hopper (sm_90a), one thread block
-// per board, one thread per cell.
+// The specials cascade's simple trips for Hopper (sm_90a), one warp per
+// board.
 //
 // Replaces the TPU kernel `cascade_sp_chunk` of
-// tile_match_tpu/ops/pallas_cascade.py (body `_cascade_sp_kernel`, with
-// `_union_mask_tile(want_aux=True)`, the case table `_simple_trip_tile`,
-// the activation closure and `_gravity_two_tile`).  Its plain PyTorch
-// version is `cascade_sp_reference` in tile_match_tpu_torch/ops/
-// cascade_sp.py; the outputs of the two are equal bit for bit, all nine.
+// tile_match_tpu/ops/pallas_cascade.py:1434 (call :1488, body
+// `_cascade_sp_kernel` :1256, with `_union_mask_tile(want_aux=True)`, the
+// case table `_simple_trip_tile`, the activation closure and
+// `_gravity_two_tile`).  Its plain PyTorch version is `cascade_sp_reference`
+// in tile_match_tpu_torch/ops/cascade_sp.py; the outputs of the two are
+// equal bit for bit, all nine.
 //
 // What it computes, per board: while the board holds a >= 3 run, is not
 // frozen, has run fewer than `max_cascades` trips and fewer than `limit`
 // in this call, one trip —
-//   1. detection: run offsets of every cell, the lowest row anchoring a
-//      line, primary cells, extension lengths and candidates, the union of
-//      the detected lines;
-//   2. the case table: per-line aggregates (sums and maxima over a cell's
-//      colour run in its row, over its column, over its row) decide whether
-//      every line classifies in closed form, which cells create which
-//      special and which union cells survive; any other shape freezes the
-//      board with its reason bits.  Without the bomb no line pairs with
+//   1. detection and the union of the detected lines (csrc/trip.cuh);
+//   2. the case table: per-line aggregates (counts, firsts and sums over a
+//      cell's colour run in its row, over its column, over its row) decide
+//      whether every line classifies in closed form, which cells create
+//      which special and which union cells survive; any other shape freezes
+//      the board with its reason bits.  Without the bomb no line pairs with
 //      another, and one phase classifies every line by its length alone
 //      (`case_table_no_bomb` in the plain version);
 //   3. the activation closure of the lasers and bombs among the deleted
@@ -26,35 +25,54 @@
 //      no convergence, freezes the board;
 //   4. delete, create, count; stable gravity of both channels (a cookie is
 //      not empty); refill with randint(fold_in(sub, trips), (R, C), 1, K+1),
-//      JAX's threefry computed per cell (csrc/threefry.cuh).
+//      JAX's threefry (csrc/threefry.cuh).
 //
 // What bounds it on the card: not memory — a 10x10 board is 800 bytes in
-// and 820 bytes out.  A trip is ~20 block barriers and, per cell, short
-// walks over its row, column and run in shared memory, plus five threefry
-// hashes per refilled cell: integer issue and barrier latency, times each
-// board's own trips.  The design keeps the board and every intermediate in
-// shared memory for the whole call and gives each board its own block, so
-// a board stops at its own last trip; per-run aggregates are bounded walks
-// over the run instead of the TPU's log-step shifted scans, and the TPU's
-// lean tier for large boards, its trip chunks and its lane transposes are
-// gone.
+// and 820 bytes out, a 0.008 ms bound at B=16384.  A trip is ~25 dependent
+// warp phases of integer work on the board in shared memory, and a board
+// runs its trips one after another: latency and synchronisation, times
+// each board's own trips, and a launch lasts at least as long as its
+// longest board.  The design:
+//   - one warp per board (`Warp`, csrc/block.cuh), 32 boards in flight per
+//     SM, each freeing its slot at its own last trip; a phase ends in
+//     __syncwarp() and every reduction is one warp vote, with no block
+//     barrier and no shared atomic;
+//   - the board's shape fixed at compile time: the build makes one
+//     library for each shape of at most 32 by 32 that runs, with index
+//     arithmetic by constants and every bit helper one 32-bit window; any
+//     larger board runs one library whose geometry is read at run time
+//     (`Geometry`, csrc/trip.cuh);
+//   - every run length, extension reach, union cover, per-run and
+//     per-column aggregate and closure region is a count, first set bit or
+//     test on row-major and column-major cell bit masks built by ballots,
+//     in place of walks over rows and columns; the rare per-line sums
+//     (survivor and target cells) visit only the set bits;
+//   - the case table runs on the union cells alone, compacted, since no
+//     other cell can freeze, create or be deleted;
+//   - flags and codes in bytes: 4,792 bytes of shared memory a 10x10
+//     board;
+//   - the closure runs only when the trip deletes a special, and stops at
+//     its fixed point; the refill keys of 32 trips are hashed at once, one
+//     trip a lane, and each empty cell's two hashes run on a pair of lanes.
+// The TPU's lean tier for large boards, its trip chunks and its lane
+// transposes are gone.
 //
-// Limits: R * C <= 1024; input boards hold no empty cell.
+// Limits: the board's working set fits a block's shared memory (~31 bytes
+// a cell at 36x36: boards up to ~7,400 cells); input boards hold no empty
+// cell.
 
-#include "block.cuh"
-#include "threefry.cuh"
+// The board program is large: its cell loops stay rolled (block.cuh).
+#define TMT_NO_UNROLL
+
+#include "trip.cuh"
 
 namespace tmt {
-
-constexpr int kBig = 1 << 20;
 
 // freeze reasons (ops/cascade_sp.py REASON_*)
 constexpr int kLen5 = 1, kExt4 = 2, kExtBomb = 4, kCookieHit = 8, kUnconverged = 16,
               kCross = 32, kMulti = 64;
 
-// flag bits of the per-cell flag words, by the phase that writes them
-constexpr int kPrim = 1, kMemH = 2, kMemV = 4;                      // fa
-constexpr int kCandH = 1, kCandV = 2;                                // fb
+// flag bits of the per-cell flag bytes, by the phase that writes them
 constexpr int kCovH = 1, kCovV = 2, kUnion = 4;                      // fc
 constexpr int kHasE3 = 1, kInitA = 2, kPartB = 4, kV3Top = 8;        // fd
 constexpr int kCr33 = 1, kCr43 = 2, kCrv4 = 4, kCrossLeaf = 8, kHckOk = 16, kVckOk = 32,
@@ -66,32 +84,54 @@ struct Config {
   bool cookie, v_laser, h_laser, bomb;
 };
 
-// Shared arrays of one board: kCellArrays per cell, kColArrays per column,
-// kRowArrays per row.
-constexpr int kCellArrays = 24, kColArrays = 6, kRowArrays = 3;
-
+// Shared memory of one board.
+template <class Ln>
 struct Smem {
-  int *x, *k, *y, *yk, *lc, *rc, *uc, *dc, *le, *re, *ue, *de;
-  int *fa, *fb, *fc, *fd, *fe, *fk, *ngv, *ncrh, *code, *rb, *s0, *s1;
-  int *col_ngh, *col_ncrv, *col_ncv, *col_topg, *col_vck, *col_tsr;
-  int *row_nch, *row_thc, *row_tsc;
+  Ln L;
+  int *x, *k, *y, *yk;                 // the board, and the board after delete and create
+  uint8_t *fc, *fd, *fe, *fk, *rb;     // flags, freeze reasons
+  int8_t* code;                        // special created at the cell (-1: cookie)
+  uint16_t* q;                         // compacted empty cells
+  uint32_t* keys;                      // KeyRing words
+  // cell masks (rm: row-major, cm: column-major)
+  uint32_t *cross, *crossc, *chc, *mv57c;            // detection extras
+  uint32_t *e3u2, *e3u1, *cvu0, *ext4a, *ext4b;      // table, per run (rm)
+  uint32_t *thc, *tsc, *h4f, *hruns;                 // table, per row or run (rm)
+  uint32_t *pb4c, *crv4c, *extvlc;                   // table, per column (cm)
+  uint32_t *sa, *sb, *svc, *k3, *k4, *emp;           // closure, gravity
+  // per column and per row values
+  int *col_ngh, *col_ncrv, *col_ncv, *col_topg, *col_vck, *col_tsr, *col_crv4, *col_tgt,
+      *col_v;
+  int *row_nch, *row_thc, *row_tsc, *row_h;
 
-  TMT_DEV Smem(int* base, int R, int C) {
-    const int n = R * C;
-    int** cell[kCellArrays] = {&x, &k, &y, &yk, &lc, &rc, &uc, &dc, &le, &re, &ue, &de,
-                               &fa, &fb, &fc, &fd, &fe, &fk, &ngv, &ncrh, &code, &rb, &s0, &s1};
-    for (int j = 0; j < kCellArrays; ++j) *cell[j] = base + j * n;
-    base += kCellArrays * n;
-    int** col[kColArrays] = {&col_ngh, &col_ncrv, &col_ncv, &col_topg, &col_vck, &col_tsr};
-    for (int j = 0; j < kColArrays; ++j) *col[j] = base + j * C;
-    base += kColArrays * C;
-    int** row[kRowArrays] = {&row_nch, &row_thc, &row_tsc};
-    for (int j = 0; j < kRowArrays; ++j) *row[j] = base + j * R;
+  TMT_HOST_DEV size_t carve(unsigned char* base, int R, int C) {
+    const int n = R * C, w = mask_words(n);
+    Arena a{base, 0};
+    L.carve(a, R, C);
+    int** cell[4] = {&x, &k, &y, &yk};
+    for (auto p : cell) *p = a.take<int>(n);
+    uint8_t** flag[5] = {&fc, &fd, &fe, &fk, &rb};
+    for (auto p : flag) *p = a.take<uint8_t>(n);
+    code = a.take<int8_t>(n);
+    q = a.take<uint16_t>(n);
+    keys = a.take<uint32_t>(4 * 32);
+    uint32_t** mask[22] = {&cross, &crossc, &chc, &mv57c, &e3u2, &e3u1, &cvu0, &ext4a,
+                           &ext4b, &thc, &tsc, &h4f, &hruns, &pb4c, &crv4c, &extvlc,
+                           &sa, &sb, &svc, &k3, &k4, &emp};
+    for (auto p : mask) *p = a.take<uint32_t>(w);
+    int** col[9] = {&col_ngh, &col_ncrv, &col_ncv, &col_topg, &col_vck, &col_tsr, &col_crv4,
+                    &col_tgt, &col_v};
+    for (auto p : col) *p = a.take<int>(C);
+    int** row[4] = {&row_nch, &row_thc, &row_tsc, &row_h};
+    for (auto p : row) *p = a.take<int>(R);
+    return a.used;
   }
 };
 
-TMT_HOST_DEV size_t smem_ints(int R, int C) {
-  return static_cast<size_t>(kCellArrays) * R * C + kColArrays * C + kRowArrays * R;
+template <class Ln>
+TMT_HOST_DEV size_t smem_bytes(int R, int C) {
+  Smem<Ln> s;
+  return s.carve(nullptr, R, C);
 }
 
 struct BoardState {
@@ -99,120 +139,46 @@ struct BoardState {
   bool active;
 };
 
-// Does the board hold a >= 3 run anywhere?
-template <class Blk>
-TMT_DEV bool has_line(const Blk& blk, const int* x, int R, int C) {
-  return blk.any([&](int i) {
-    const int r = i / C, c = i % C, v = x[i];
-    if (v <= 0) return false;
-    return (c + 2 < C && x[i + 1] == v && x[i + 2] == v) ||
-           (r + 2 < R && x[i + C] == v && x[i + 2 * C] == v);
-  });
-}
-
 // The board's cascade; s.x / s.k hold the board on entry and on exit.
-template <class Blk>
-TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf, uint32_t key0,
+template <class W, class Ln>
+TMT_DEV void cascade_sp_program(const W& w, const Smem<Ln>& s, const Config& cf, uint32_t key0,
                                 uint32_t key1, BoardState& st) {
-  const int R = cf.R, C = cf.C;
+  const Ln& L = s.L;
+  const int R = L.R(), C = L.C(), n = L.n(), nw = mask_words(n);
   const int h_code = cf.h_laser ? 3 : (cf.v_laser ? 2 : 0);
   const int v_code = cf.v_laser ? 2 : 0;
   const uint32_t mult = randint_mult(static_cast<uint32_t>(cf.K));
   int* x = s.x;
   int* k = s.k;
+  KeyRing ring{s.keys, -1};
 
-  auto hl = [&](int q) { return s.lc[q] + s.rc[q] + 1; };
-  auto vl = [&](int q) { return s.uc[q] + s.dc[q] + 1; };
-  auto hext = [&](int q) { return 1 + s.le[q] + s.re[q]; };
-  auto vext = [&](int q) { return 1 + s.ue[q] + s.de[q]; };
-  auto prim = [&](int q) { return (s.fa[q] & kPrim) != 0; };
-  auto mh = [&](int q) { return (s.fa[q] & kMemH) != 0; };
-  auto mv = [&](int q) { return (s.fa[q] & kMemV) != 0; };
-  auto cross = [&](int q) { return (s.fa[q] & (kMemH | kMemV)) == (kMemH | kMemV); };
-  auto ch = [&](int q) { return (s.fb[q] & kCandH) != 0; };
-  auto cv = [&](int q) { return (s.fb[q] & kCandV) != 0; };
+  auto mh = [&](int q) { return bit(L.mh, q); };
+  auto mv = [&](int q) { return bit(L.mv, q); };
+  auto ch = [&](int q) { return bit(L.ch, q); };
+  auto cv = [&](int q) { return bit(L.cv, q); };
+  auto prim = [&](int q) { return bit(L.p, q); };
   auto in5_7 = [](int len) { return len >= 5 && len <= 7; };
+  // the row-major range [lo, hi) of cell q's colour run along its row
+  auto run_lo = [&](int q) { return q - L.lc(q); };
+  auto run_hi = [&](int q) { return q + L.rc(q) + 1; };
 
   for (int t = 0; t < cf.limit; ++t) {
-    const bool lined = has_line(blk, x, R, C);
-    if (!lined || st.frozen != 0 || st.trips >= cf.max_cascades) break;
+    if (st.frozen != 0 || st.trips >= cf.max_cascades) break;
+    const int sr0 = line_masks(w, L, x);
+    if (sr0 < 0) break;
 
     // ---- 1. detection ----------------------------------------------------
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C, v = x[i];
-      int l = 0, rr = 0, u = 0, d = 0;
-      if (v > 0) {
-        for (int q = c - 1; q >= 0 && x[r * C + q] == v; --q) ++l;
-        for (int q = c + 1; q < C && x[r * C + q] == v; ++q) ++rr;
-        for (int q = r - 1; q >= 0 && x[q * C + c] == v; --q) ++u;
-        for (int q = r + 1; q < R && x[q * C + c] == v; ++q) ++d;
-      }
-      s.lc[i] = l;
-      s.rc[i] = rr;
-      s.uc[i] = u;
-      s.dc[i] = d;
-    });
-    const int sr0 = blk.max(
-        [&](int i) {
-          const bool anchor = x[i] > 0 && (hl(i) >= 3 || (vl(i) >= 3 && s.dc[i] == 0));
-          return anchor ? i / C : -1;
-        },
-        -1);
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      const int j = sr0 * C + c;  // this column's cell in the flag row
-      const bool vflag = x[j] > 0 && vl(j) >= 3 && s.dc[j] == 0;
-      const bool memv = vflag && sr0 - s.uc[j] <= r && r <= sr0;
-      const bool memh = r == sr0 && x[i] > 0 && hl(i) >= 3;
-      s.fa[i] = (memh || memv ? kPrim : 0) | (memh ? kMemH : 0) | (memv ? kMemV : 0);
-    });
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C, v = x[i];
-      int l = 0, rr = 0, u = 0, d = 0;
-      if (v > 0) {
-        for (int q = c - 1; q >= 0 && x[r * C + q] == v && !prim(r * C + q); --q) ++l;
-        for (int q = c + 1; q < C && x[r * C + q] == v && !prim(r * C + q); ++q) ++rr;
-        for (int q = r - 1; q >= 0 && x[q * C + c] == v && !prim(q * C + c); --q) ++u;
-        for (int q = r + 1; q < R && x[q * C + c] == v && !prim(q * C + c); ++q) ++d;
-      }
-      s.le[i] = l;
-      s.re[i] = rr;
-      s.ue[i] = u;
-      s.de[i] = d;
-      s.fb[i] = (prim(i) && 1 + l + rr >= 3 ? kCandH : 0) | (prim(i) && 1 + u + d >= 3 ? kCandV : 0);
-    });
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      bool cov_h = false, cov_v = false;
-      for (int q = 0; q < C; ++q) {
-        const int g = r * C + q;
-        if (ch(g) && ((q <= c && q + s.re[g] >= c) || (q >= c && q - s.le[g] <= c))) cov_h = true;
-      }
-      for (int q = 0; q < R; ++q) {
-        const int g = q * C + c;
-        if (cv(g) && ((q <= r && q + s.de[g] >= r) || (q >= r && q - s.ue[g] <= r))) cov_v = true;
-      }
+    // the union cells, in order, into s.q: the case table writes only
+    // theirs, every other cell keeps the zeros written here
+    detect(w, L, sr0);
+    int m = w.compact(n, s.q, [&](int i) {
+      bool cov_h, cov_v;
+      L.cover(x, i, cov_h, cov_v);
       const bool uni = prim(i) || ((cov_h || cov_v) && x[i] > 0);
       s.fc[i] = (cov_h ? kCovH : 0) | (cov_v ? kCovV : 0) | (uni ? kUnion : 0);
-      if (r == 0) {  // column aggregates
-        int ngh = 0, ncrv = 0, ncv = 0, topg = kBig;
-        for (int q = R - 1; q >= 0; --q) {
-          const int g = q * C + c;
-          ngh += ch(g);
-          ncrv += cross(g);
-          ncv += cv(g);
-          if (ch(g)) topg = q;
-        }
-        s.col_ngh[c] = ngh;
-        s.col_ncrv[c] = ncrv;
-        s.col_ncv[c] = ncv;
-        s.col_topg[c] = topg;
-      }
-      if (c == 0) {  // row aggregates
-        int nch = 0;
-        for (int q = 0; q < C; ++q) nch += ch(r * C + q);
-        s.row_nch[r] = nch;
-      }
+      s.fd[i] = s.fe[i] = s.rb[i] = s.fk[i] = 0;
+      s.code[i] = 0;
+      return uni;
     });
 
     // ---- 2. the case table -----------------------------------------------
@@ -222,70 +188,98 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
       // only in the tail of a 6- or 7-line and in no other line's cells but
       // its tail; lines of 9 or more and extensions of 4 or more freeze the
       // board
-      blk.each([&](int i) {
+      w.each_of(m, [&](int e) {
+        const int i = s.q[e];
         const bool memh = mh(i), memv = mv(i);
-        const int hli = hl(i), vli = vl(i);
+        const int lc = L.lc(i), uc = L.uc(i);
+        const int hli = L.hl(i), vli = L.vl(i);
         const bool len_bad = cf.cookie && ((memh && hli >= 9) || (memv && vli >= 9));
-        const bool ext_bad = (ch(i) && hext(i) >= 4) || (cv(i) && vext(i) >= 4);
+        const bool ext_bad = (ch(i) && L.hext(i) >= 4) || (cv(i) && L.vext(i) >= 4);
         s.rb[i] = (len_bad ? kLen5 : 0) | (ext_bad ? kExt4 : 0);
-        const bool h4 = h_code != 0 && memh && hli == 4 && s.lc[i] == 1;
-        const bool v4 = v_code != 0 && memv && vli == 4 && s.uc[i] == 1;
-        const bool ck = cf.cookie && ((memh && hli >= 5 && hli <= 8 && s.lc[i] == 2) ||
-                                      (memv && vli >= 5 && vli <= 8 && s.uc[i] == 2));
-        const bool h_tail = cf.cookie && memh && (hli == 6 || hli == 7) && s.lc[i] >= 5;
-        const bool v_tail = cf.cookie && memv && (vli == 6 || vli == 7) && s.uc[i] >= 5;
+        const bool h4 = h_code != 0 && memh && hli == 4 && lc == 1;
+        const bool v4 = v_code != 0 && memv && vli == 4 && uc == 1;
+        const bool ck = cf.cookie && ((memh && hli >= 5 && hli <= 8 && lc == 2) ||
+                                      (memv && vli >= 5 && vli <= 8 && uc == 2));
+        const bool h_tail = cf.cookie && memh && (hli == 6 || hli == 7) && lc >= 5;
+        const bool v_tail = cf.cookie && memv && (vli == 6 || vli == 7) && uc >= 5;
         const bool keep = (h_tail || v_tail) && (h_tail || !memh) && (v_tail || !memv) &&
                           !ch(i) && !cv(i);
-        s.code[i] = h4 ? h_code : v4 ? v_code : ck ? -1 : 0;
-        const bool dele = (s.fc[i] & kUnion) && !keep;
-        s.fk[i] = dele ? kDele : 0;
-        s.s0[i] = dele && k[i] > 1;
+        s.code[i] = static_cast<int8_t>(h4 ? h_code : v4 ? v_code : ck ? -1 : 0);
+        s.fk[i] = (s.fc[i] & kUnion) && !keep ? kDele : 0;
       });
     } else {
-      // per-cell aggregates over the cell's horizontal colour run [c0, c1]
-      blk.each([&](int i) {
-        const int r = i / C, c = i % C;
-        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-        int ngv = 0, ncrh = 0, ne3 = 0, max_init = -1, max_u0 = -1;
-        for (int q = c0; q <= c1; ++q) {
-          const int g = r * C + q;
-          ngv += cv(g);
-          ncrh += cross(g);
-          const bool e3 = cv(g) && vext(g) == 3 && s.ue[g] >= 1;
-          ne3 += e3;
-          if (e3 && s.ue[g] * C + (C - 1 - q) > max_init) max_init = s.ue[g] * C + (C - 1 - q);
-          if (cv(g) && s.ue[g] == 0 && C - 1 - q > max_u0) max_u0 = C - 1 - q;
-        }
-        s.ngv[i] = ngv;
-        s.ncrh[i] = ncrh;
-        const bool has_e3 = ne3 > 0;
-        const bool h_star = mh(i) && ngv >= 1 && ncrh == 0;
-        const bool e3 = cv(i) && vext(i) == 3 && s.ue[i] >= 1;
-        const bool initA = e3 && s.ue[i] * C + (C - 1 - c) == max_init && h_star;
-        const bool partB =
-            cv(i) && s.ue[i] == 0 && C - 1 - c == max_u0 && h_star && !has_e3 && hl(i) == 3;
-        const bool v3_top =
-            ch(i) && vl(i) == 3 && s.col_ncrv[c] == 0 && r == s.col_topg[c];
-        s.fd[i] = (has_e3 ? kHasE3 : 0) | (initA ? kInitA : 0) | (partB ? kPartB : 0) |
-                  (v3_top ? kV3Top : 0);
-        if (r == 0) {  // does this column hold a cookie-centre v-line?
-          bool vck = false;
-          const bool nsh_v = s.col_ngh[c] + s.col_ncrv[c] >= 1;
-          for (int q = 0; q < R && cf.cookie; ++q) {
-            const int g = q * C + c;
-            vck = vck || (mv(g) && in5_7(vl(g)) && nsh_v);
-          }
-          s.col_vck[c] = vck;
+      w.each_of(nw, [&](int q) { s.cross[q] = L.mh[q] & L.mv[q]; });
+      // the extensions a run's aggregates count (rm, at cell q), and the
+      // column masks (cm, at column-major index q)
+      {
+        uint32_t* const masks[8] = {s.e3u2, s.e3u1, s.cvu0, s.ext4a, s.ext4b,
+                                    s.crossc, s.chc, s.mv57c};
+        w.ballots(n, masks, [&](int q) {
+          const int i = L.rm(q);
+          int out = (bit(s.cross, i) ? 32 : 0) | (ch(i) ? 64 : 0) |
+                    (cf.cookie && mv(i) && in5_7(L.vl(i)) ? 128 : 0);
+          if (!cv(q)) return out;
+          const int ue = L.ue(q), vx = L.vext(q), lc = L.lc(q);
+          const bool e3 = vx == 3 && ue >= 1, ext4 = vx == 4;
+          return out | (e3 && ue == 2 ? 1 : 0) | (e3 && ue == 1 ? 2 : 0) | (ue == 0 ? 4 : 0) |
+                 (ext4 && (ue == 1 || (ue == 0 && lc == 1)) ? 8 : 0) |
+                 (ext4 && (ue == 1 || (ue == 0 && lc == 2)) ? 16 : 0);
+        });
+      }
+      // column and row aggregates
+      w.each_of(C + R, [&](int e) {
+        if (e < C) {
+          const int lo = e * R, hi = lo + R;
+          const int ngh = L.popc(s.chc, lo, hi), ncrv = L.popc(s.crossc, lo, hi);
+          const int top = L.first(s.chc, lo, hi);
+          s.col_ngh[e] = ngh;
+          s.col_ncrv[e] = ncrv;
+          s.col_ncv[e] = L.popc(L.cvc, lo, hi);
+          s.col_topg[e] = top < 0 ? -1 : top - lo;
+          // does this column hold a cookie-centre v-line?
+          s.col_vck[e] = ngh + ncrv >= 1 && L.any(s.mv57c, lo, hi);
+        } else {
+          const int lo = (e - C) * C;
+          s.row_nch[e - C] = L.popc(L.ch, lo, lo + C);
         }
       });
-      blk.each([&](int i) {
-        const int r = i / C, c = i % C;
-        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-        const bool memh = mh(i), memv = mv(i), crs = cross(i), cdh = ch(i), cdv = cv(i);
-        const int hli = hl(i), vli = vl(i), hx = hext(i), vx = vext(i);
+      // per-cell aggregates over the cell's horizontal colour run
+      w.each_of(m, [&](int e) {
+        const int i = s.q[e];
+        const int r = L.row(i), c = L.col(i), lo = run_lo(i), hi = run_hi(i);
+        const int ngv = L.popc(L.cv, lo, hi), ncrh = L.popc(s.cross, lo, hi);
+        const bool has_e3 = L.any(s.e3u2, lo, hi) || L.any(s.e3u1, lo, hi);
+        const bool h_star = mh(i) && ngv >= 1 && ncrh == 0;
+        // the extension-3 initiator: the highest reach, then the leftmost
+        const int f2 = L.first(s.e3u2, lo, hi);
+        const bool initA = i == (f2 >= 0 ? f2 : L.first(s.e3u1, lo, hi)) && h_star;
+        const bool partB = i == L.first(s.cvu0, lo, hi) && h_star && !has_e3 && L.hl(i) == 3;
+        const bool v3_top = ch(i) && L.vl(i) == 3 && s.col_ncrv[c] == 0 && r == s.col_topg[c];
+        s.fd[i] = (has_e3 ? kHasE3 : 0) | (initA ? kInitA : 0) | (partB ? kPartB : 0) |
+                  (v3_top ? kV3Top : 0);
+      });
+      {
+        // h-extension targets and survivors (rm, at cell q), v-extension
+        // partners (cm, at column-major index q)
+        uint32_t* const masks[3] = {s.thc, s.tsc, s.pb4c};
+        w.ballots(n, masks, [&](int q) {
+          const int i = L.rm(q);
+          const int out = (s.fd[i] & kPartB) && L.vext(i) == 4 ? 4 : 0;
+          if (!ch(q) || L.hext(q) != 4) return out;
+          const int c = L.col(q);
+          const bool v3 = (s.fd[q] & kV3Top) != 0;
+          const bool v_star = mv(q) && s.col_ngh[c] >= 1 && s.col_ncrv[c] == 0;
+          return out | ((v_star && !v3) || (s.col_vck[c] && L.vl(q) >= 5) ? 1 : 0) | (v3 ? 2 : 0);
+        });
+      }
+      w.each_of(m, [&](int e) {
+        const int i = s.q[e];
+        const int r = L.row(i), c = L.col(i), lo = run_lo(i), hi = run_hi(i);
+        const bool memh = mh(i), memv = mv(i), crs = bit(s.cross, i), cdh = ch(i), cdv = cv(i);
+        const int hli = L.hl(i), vli = L.vl(i), hx = L.hext(i), vx = L.vext(i), uc = L.uc(i);
         const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
         const int nsh_v = n_gh_col + n_crv_col;
-        const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
+        const int n_gv_run = L.popc(L.cv, lo, hi), n_crh_run = L.popc(s.cross, lo, hi);
         const int nsh_h = n_gv_run + n_crh_run;
         const bool has_e3 = (s.fd[i] & kHasE3) != 0;
         const bool partB = (s.fd[i] & kPartB) != 0;
@@ -295,23 +289,18 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
                            (memh && n_gv_run >= 1 && n_crh_run >= 1) ||
                            (memh && n_crh_run >= 2) || (memv && n_crv_col >= 2);
         const bool ext_bad = (cdh && hx >= 5) || (cdv && vx >= 5);
-        const bool v4_star_bad = cdh && vli == 4 && hx == 4 && s.uc[i] == 1;
+        const bool v4_star_bad = cdh && vli == 4 && hx == 4 && uc == 1;
         const bool v_ck_ok = cf.cookie && memv && in5_7(vli) && nsh_v >= 1;
-        const bool v_ck_bad = cdh && in5_7(vli) && hx == 4 && s.uc[i] == 2;
+        const bool v_ck_bad = cdh && in5_7(vli) && hx == 4 && uc == 2;
         const bool v_ck_col = s.col_vck[c] != 0;
         const bool cross_leaf = crs && v_ck_col && nsh_h == 1 && (hli == 3 || hli == 4);
         const bool h_star = memh && n_gv_run >= 1 && n_crh_run == 0;
-        int n_ext4_a = 0, n_ext4_b = 0;  // len-4 exts that shift a laser / cookie pick
-        for (int q = c0; q <= c1; ++q) {
-          const int g = r * C + q;
-          const bool ext4 = cv(g) && vext(g) == 4;
-          n_ext4_a += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 1));
-          n_ext4_b += ext4 && (s.ue[g] == 1 || (s.ue[g] == 0 && s.lc[g] == 2));
-        }
-        const bool h4_star_bad = h_star && hli == 4 && !has_e3 && n_ext4_a > 0;
+        // length-4 extensions that shift a laser / cookie pick
+        const bool ext4_a = L.any(s.ext4a, lo, hi), ext4_b = L.any(s.ext4b, lo, hi);
+        const bool h4_star_bad = h_star && hli == 4 && !has_e3 && ext4_a;
         const bool h_ck_ok =
             cf.cookie && memh && in5_7(hli) && nsh_h >= 1 && n_crh_run == 0 && !has_e3;
-        const bool h_ck_bad = memh && in5_7(hli) && (has_e3 || n_ext4_b > 0) && n_gv_run >= 1;
+        const bool h_ck_bad = memh && in5_7(hli) && (has_e3 || ext4_b) && n_gv_run >= 1;
         const bool shared_h = memh && nsh_h >= 1;
         const bool shared_v = memv && nsh_v >= 1;
         bool len_bad;
@@ -337,125 +326,176 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
         s.fe[i] = (cr33 ? kCr33 : 0) | (cr43 ? kCr43 : 0) | (crv4 ? kCrv4 : 0) |
                   (cross_leaf ? kCrossLeaf : 0) | (h_ck_ok ? kHckOk : 0) |
                   (v_ck_ok ? kVckOk : 0) | (ext_vl ? kExtVl : 0);
-        if (r == 0) {  // survivor row of a length-4 v-extension partner
-          int tsr = 0;
-          for (int q = 0; q < R; ++q) {
-            const int g = q * C + c;
-            if ((s.fd[g] & kPartB) && vext(g) == 4) tsr += q + s.de[g] + 1;
+      });
+      {
+        uint32_t* const masks[4] = {s.h4f, s.hruns, s.crv4c, s.extvlc};
+        w.ballots(n, masks, [&](int q) {  // rm at cell q, cm at column-major index q
+          const int fe = s.fe[q], fe_c = s.fe[L.rm(q)];
+          const bool h4 = L.hl(q) == 4;
+          return (((fe & kCrv4) && h4) || (fe & kCrossLeaf) ? 1 : 0) |
+                 ((fe & kCr43) || ((s.fd[q] & kInitA) && h4) ? 2 : 0) |
+                 ((fe_c & kCrv4) ? 4 : 0) | ((fe_c & kExtVl) ? 8 : 0);
+        });
+      }
+      // the targets and survivors of extensions, per column and per row:
+      // sums over the few cells that have one
+      w.each_of(C + R, [&](int e) {
+        if (e < C) {
+          const int lo = e * R, hi = lo + R;
+          int tsr = 0, tgt = 0;  // survivor row of a length-4 v-extension partner, laser row
+          for (int j = L.first(s.pb4c, lo, hi); j >= 0; j = L.first(s.pb4c, j + 1, hi))
+            tsr += j - lo + L.up(L.erv, j) + 1;
+          for (int j = L.first(s.extvlc, lo, hi); j >= 0;
+               j = L.first(s.extvlc, j + 1, hi))
+            tgt += j - lo - L.down(L.elv, j - 1) + 2;
+          s.col_tsr[e] = tsr;
+          s.col_tgt[e] = tgt;
+          s.col_crv4[e] = L.any(s.crv4c, lo, hi);
+        } else {
+          const int lo = (e - C) * C, hi = lo + C;
+          int thc = 0, tsc = 0;  // h-extension laser target and survivor columns
+          for (int g = L.first(s.thc, lo, hi); g >= 0; g = L.first(s.thc, g + 1, hi))
+            thc += g - lo - L.le(g) + 2;
+          for (int g = L.first(s.tsc, lo, hi); g >= 0; g = L.first(s.tsc, g + 1, hi)) {
+            const int le = L.le(g), re = L.re(g);
+            tsc += (re > le ? g - lo + re : g - lo - le) + 1;
           }
-          s.col_tsr[c] = tsr;
-        }
-        if (c == 0) {  // h-extension laser target and survivor columns
-          int thc = 0, tsc = 0;
-          for (int q = 0; q < C; ++q) {
-            const int g = r * C + q;
-            const bool v_star = mv(g) && s.col_ngh[q] >= 1 && s.col_ncrv[q] == 0;
-            const bool v3 = (s.fd[g] & kV3Top) != 0;
-            if (ch(g) && hext(g) == 4 && ((v_star && !v3) || (s.col_vck[q] && vl(g) >= 5)))
-              thc += q - s.le[g] + 2;
-            if (v3 && hext(g) == 4)
-              tsc += (s.re[g] > s.le[g] ? q + s.re[g] : q - s.le[g]) + 1;
-          }
-          s.row_thc[r] = thc;
-          s.row_tsc[r] = tsc;
+          s.row_thc[e - C] = thc;
+          s.row_tsc[e - C] = tsc;
         }
       });
 
-      // creations and survivors
-      blk.each([&](int i) {
-        const int r = i / C, c = i % C;
-        const int c0 = c - s.lc[i], c1 = c + s.rc[i];
-        const bool memh = mh(i), memv = mv(i), crs = cross(i);
-        const int hli = hl(i), vli = vl(i);
+      // creations and survivors, on the union cells and the laser targets
+      m = w.compact(n, s.q, [&](int i) {
+        const int r = L.row(i), c = L.col(i);
+        return (s.fc[i] & kUnion) || r + 1 == s.col_tgt[c] || c + 1 == s.row_thc[r];
+      });
+      w.each_of(m, [&](int e) {
+        const int i = s.q[e];
+        const int r = L.row(i), c = L.col(i), lo = run_lo(i), hi = run_hi(i);
+        const bool memh = mh(i), memv = mv(i), crs = bit(s.cross, i);
+        const int hli = L.hl(i), vli = L.vl(i), lc = L.lc(i), uc = L.uc(i);
         const int n_gh_col = s.col_ngh[c], n_crv_col = s.col_ncrv[c];
         const int nsh_v = n_gh_col + n_crv_col;
-        const int n_gv_run = s.ngv[i], n_crh_run = s.ncrh[i];
+        const int n_gv_run = L.popc(L.cv, lo, hi), n_crh_run = L.popc(s.cross, lo, hi);
         const int nsh_h = n_gv_run + n_crh_run;
         const int fd = s.fd[i], fe = s.fe[i];
         const bool has_e3 = fd & kHasE3, initA = fd & kInitA;
         const bool bomb = (fe & (kCr33 | kCr43)) || (fd & (kV3Top | kPartB)) ||
                           (initA && (hli == 3 || hli == 4));
-        bool col_crv4 = false;
-        int tgt_vr = 0;
-        for (int q = 0; q < R; ++q) {
-          const int g = q * C + c;
-          col_crv4 = col_crv4 || (s.fe[g] & kCrv4);
-          if (s.fe[g] & kExtVl) tgt_vr += q - s.ue[g] + 2;
-        }
-        const bool v4 = memv && vli == 4 && s.uc[i] == 1 &&
-                        (nsh_v == 0 || col_crv4 || (n_gh_col >= 1 && n_crv_col == 0));
-        int n_h4 = 0, sc_b = 0;
-        for (int q = c0; q <= c1; ++q) {
-          const int g = r * C + q;
-          n_h4 += ((s.fe[g] & kCrv4) && hl(g) == 4) || (s.fe[g] & kCrossLeaf);
-          const bool hrun_s = (s.fe[g] & kCr43) || ((s.fd[g] & kInitA) && hl(g) == 4);
-          if (hrun_s) sc_b += (s.rc[g] > s.lc[g] ? q + s.rc[g] : q - s.lc[g]) + 1;
-        }
-        const bool h4_flag = n_h4 > 0 || (n_gv_run >= 1 && n_crh_run == 0 && !has_e3);
-        const bool h4 = memh && hli == 4 && s.lc[i] == 1 && (nsh_h == 0 || h4_flag);
-        const bool vl_cells = v_code != 0 && (v4 || r + 1 == tgt_vr);
+        const bool v4 = memv && vli == 4 && uc == 1 &&
+                        (nsh_v == 0 || s.col_crv4[c] || (n_gh_col >= 1 && n_crv_col == 0));
+        const bool h4_flag =
+            L.any(s.h4f, lo, hi) || (n_gv_run >= 1 && n_crh_run == 0 && !has_e3);
+        const bool h4 = memh && hli == 4 && lc == 1 && (nsh_h == 0 || h4_flag);
+        const bool vl_cells = v_code != 0 && (v4 || r + 1 == s.col_tgt[c]);
         const bool hl_cells = h_code != 0 && (h4 || c + 1 == s.row_thc[r]);
         const bool ck = cf.cookie &&
-                        ((memh && hli >= 5 && hli <= 8 && s.lc[i] == 2 &&
+                        ((memh && hli >= 5 && hli <= 8 && lc == 2 &&
                           (nsh_h == 0 || (fe & kHckOk))) ||
-                         (memv && vli >= 5 && vli <= 8 && s.uc[i] == 2 &&
+                         (memv && vli >= 5 && vli <= 8 && uc == 2 &&
                           (nsh_v == 0 || (fe & kVckOk))));
-        bool keep = memh && c + 1 == sc_b;
+        bool keep = false;
+        if (memh) {  // survivor column of the run's h-run bomb pick
+          int sc_b = 0;
+          for (int g = L.first(s.hruns, lo, hi); g >= 0; g = L.first(s.hruns, g + 1, hi)) {
+            const int q = g - r * C, lg = L.lc(g), rg = L.rc(g);
+            sc_b += (rg > lg ? q + rg : q - lg) + 1;
+          }
+          keep = c + 1 == sc_b;
+        }
         keep = keep || (c + 1 == s.row_tsc[r] && !prim(i));
         keep = keep || (r + 1 == s.col_tsr[c] && !prim(i));
         if (cf.cookie) {
-          keep = keep || (memh && (hli == 6 || hli == 7) && s.lc[i] >= 5 &&
+          keep = keep || (memh && (hli == 6 || hli == 7) && lc >= 5 &&
                           (nsh_h == 0 || (fe & kHckOk)) && !cv(i) && !crs && !memv);
-          keep = keep || (memv && (vli == 6 || vli == 7) && s.uc[i] >= 5 &&
+          keep = keep || (memv && (vli == 6 || vli == 7) && uc >= 5 &&
                           (nsh_v == 0 || (fe & kVckOk)) && !ch(i) && !crs && !memh);
         }
-        s.code[i] = bomb ? 4 : vl_cells ? v_code : hl_cells ? h_code : ck ? -1 : 0;
-        const bool dele = (s.fc[i] & kUnion) && !keep;
-        s.fk[i] = dele ? kDele : 0;
-        s.s0[i] = dele && k[i] > 1;
+        s.code[i] = static_cast<int8_t>(bomb ? 4 : vl_cells ? v_code : hl_cells ? h_code : ck ? -1 : 0);
+        s.fk[i] = (s.fc[i] & kUnion) && !keep ? kDele : 0;
       });
     }
-    const int table_bits = blk.bit_or([&](int i) { return s.rb[i]; });
+    // freeze reasons and deleted specials: only the cells in s.q have any
+    int bits = 0, spec = 0;
+    w.each_of(m, [&](int e) {
+      const int i = s.q[e];
+      bits |= s.rb[i];
+      spec += (s.fk[i] & kDele) && k[i] != 1;
+    });
+    const int table_bits = w.lanes_or(bits);
 
     // ---- 3. the activation closure ----------------------------------------
-    const int n_spec = blk.count([&](int i) { return (s.fk[i] & kDele) && k[i] != 1; });
-    bool bad_sp = blk.any([&](int i) { return (s.fk[i] & kDele) && k[i] == -1; });
-    auto region = [&](const int* S, int i) {
-      const int r = i / C, c = i % C;
-      for (int q = 0; q < R; ++q)
-        if (S[q * C + c] && k[q * C + c] == 2) return true;
-      for (int q = 0; q < C; ++q)
-        if (S[r * C + q] && k[r * C + q] == 3) return true;
-      for (int dr = -1; dr <= 1; ++dr)
-        for (int dc = -1; dc <= 1; ++dc) {
-          const int rr = r + dr, cc = c + dc;
-          if (rr >= 0 && rr < R && cc >= 0 && cc < C && S[rr * C + cc] && k[rr * C + cc] == 4)
-            return true;
-        }
-      return false;
-    };
-    int* S = s.s0;
-    int* S_next = s.s1;
-    for (int e = 0; e < 4; ++e) {
-      const bool cookie_hit = blk.any([&](int i) {
-        const bool hit = region(S, i) && k[i] != 1 && k[i] != 0;
-        S_next[i] = S[i] || (hit && k[i] > 1);
-        return hit && k[i] == -1;
+    const int n_spec = w.lanes_sum(spec);
+    bool bad_sp = false, unconverged = false;
+    int act_n = 0;
+    if (n_spec > 0) {  // with no special deleted, every region is empty
+      bad_sp = w.any([&](int i) { return (s.fk[i] & kDele) && k[i] == -1; });
+      uint32_t* S = s.sa;
+      uint32_t* S_next = s.sb;
+      {
+        uint32_t* const masks[3] = {S, s.k3, s.k4};
+        w.ballots(n, masks, [&](int i) {
+          return ((s.fk[i] & kDele) && k[i] > 1 ? 1 : 0) | (k[i] == 3 ? 2 : 0) |
+                 (k[i] == 4 ? 4 : 0);
+        });
+      }
+      // per column "an active v-laser", per row "an active h-laser"
+      auto lines_of = [&](const uint32_t* Sm) {
+        w.ballot(n, s.svc, [&](int j) {
+          const int i = L.rm(j);
+          return bit(Sm, i) && k[i] == 2;
+        });
+        w.each_of(C + R, [&](int e) {
+          if (e < C)
+            s.col_v[e] = L.any(s.svc, e * R, e * R + R);
+          else
+            s.row_h[e - C] = L.any(Sm, (e - C) * C, (e - C) * C + C, s.k3);
+        });
+      };
+      // is cell i in the region of an active special: its column's
+      // v-lasers, its row's h-lasers, the bombs of its 3x3
+      auto region = [&](const uint32_t* Sm, int i) {
+        const int r = L.row(i), c = L.col(i);
+        if (s.col_v[c] || s.row_h[r]) return true;
+        const int c0 = c > 0 ? c - 1 : 0, c1 = c + 1 < C ? c + 2 : C;
+        for (int rr = r > 0 ? r - 1 : 0; rr <= r + 1 && rr < R; ++rr)
+          if (L.any(Sm, rr * C + c0, rr * C + c1, s.k4)) return true;
+        return false;
+      };
+      // four expansions; one that adds nothing leaves every later one the
+      // same, and col_v / row_h already those of S
+      bool fresh = false;
+      for (int e = 0; e < 4 && !fresh; ++e) {
+        lines_of(S);
+        bool hit_cookie = false, grew = false;
+        w.ballot(n, S_next, [&](int i) {
+          const bool hit = region(S, i) && k[i] != 1 && k[i] != 0;
+          const bool add = hit && k[i] > 1 && !bit(S, i);
+          hit_cookie = hit_cookie || (hit && k[i] == -1);
+          grew = grew || add;
+          return bit(S, i) || add;
+        });
+        bad_sp = w.lanes_any(hit_cookie) || bad_sp;
+        fresh = !w.lanes_any(grew);
+        uint32_t* tmp = S;
+        S = S_next;
+        S_next = tmp;
+      }
+      if (!fresh) lines_of(S);
+      bool hit_cookie = false, open = false;
+      int act = 0;
+      w.each([&](int i) {
+        const bool reg = region(S, i);
+        s.fk[i] |= reg ? kRegion : 0;
+        hit_cookie = hit_cookie || (reg && k[i] == -1);
+        open = open || (reg && k[i] > 1 && !bit(S, i));
+        act += bit(S, i);
       });
-      bad_sp = bad_sp || cookie_hit;
-      int* tmp = S;
-      S = S_next;
-      S_next = tmp;
+      bad_sp = w.lanes_any(hit_cookie) || bad_sp;
+      unconverged = w.lanes_any(open);
+      act_n = w.lanes_sum(act);
     }
-    blk.each([&](int i) { s.fk[i] |= region(S, i) ? kRegion : 0; });
-    const bool cookie_hit = blk.any([&](int i) {
-      return (s.fk[i] & kRegion) && k[i] == -1;
-    });
-    bad_sp = bad_sp || cookie_hit;
-    const bool unconverged = blk.any([&](int i) {
-      return (s.fk[i] & kRegion) && k[i] > 1 && !S[i];
-    });
-    const int act_n = blk.count([&](int i) { return S[i] != 0; });
     const bool act_lane = n_spec > 0 && !bad_sp && !unconverged;
     const bool simple = table_bits == 0 && (n_spec == 0 || act_lane);
     if (!simple) {
@@ -466,45 +506,28 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
     }
 
     // ---- 4. delete, create, gravity, refill --------------------------------
-    auto dele = [&](int i) {
-      return (s.fk[i] & kDele) || (act_lane && (s.fk[i] & kRegion));
-    };
-    const int n_dele = blk.count(dele);
-    const int n_created = blk.count([&](int i) { return s.code[i] != 0; });
-    blk.each([&](int i) {
+    // delete and create into y / yk (a cookie is not empty), then gravity
+    int n_dele = 0, n_created = 0;
+    gravity(w, L, s.y, s.yk, x, k, s.emp, [&](int i) {
       const int cd = s.code[i];
-      const bool d = dele(i);
-      s.y[i] = cd != 0 ? (cd == -1 ? 0 : x[i]) : (d ? 0 : x[i]);
-      s.yk[i] = cd != 0 ? cd : (d ? 0 : k[i]);
+      const bool d = (s.fk[i] & kDele) || (act_lane && (s.fk[i] & kRegion));
+      n_dele += d;
+      n_created += cd != 0;
+      const int yc = cd != 0 ? (cd == -1 ? 0 : x[i]) : (d ? 0 : x[i]);
+      const int yk = cd != 0 ? cd : (d ? 0 : k[i]);
+      s.y[i] = yc;
+      s.yk[i] = yk;
+      return yc == 0 && yk == 0;
     });
+    n_dele = w.lanes_sum(n_dele);
+    n_created = w.lanes_sum(n_created);
     st.elim += n_dele - n_created;
     st.created += n_created;
     st.activated += act_n;
-    // stable gravity: an empty cell lands at the number of empties above
-    // it, a tile moves down by the number of empties below it
-    blk.each([&](int i) {
-      const int r = i / C, c = i % C;
-      auto empty = [&](int q) { return s.y[q] == 0 && s.yk[q] == 0; };
-      int dest = 0;
-      if (empty(i)) {
-        for (int q = 0; q < r; ++q) dest += empty(q * C + c);
-      } else {
-        dest = r;
-        for (int q = r + 1; q < R; ++q) dest += empty(q * C + c);
-      }
-      x[dest * C + c] = s.y[i];
-      k[dest * C + c] = s.yk[i];
-    });
-    blk.each([&](int i) {
-      if (x[i] == 0 && k[i] == 0) {
-        x[i] = refill_colour(key0, key1, static_cast<uint32_t>(st.trips), static_cast<uint32_t>(i),
-                             static_cast<uint32_t>(cf.K), mult);
-        k[i] = 1;
-      }
-    });
+    refill(w, n, x, k, s.q, ring, key0, key1, st.trips, static_cast<uint32_t>(cf.K), mult);
     st.trips += 1;
   }
-  st.active = has_line(blk, x, R, C);
+  st.active = line_masks(w, L, x) >= 0;
 }
 
 }  // namespace tmt
@@ -515,33 +538,35 @@ TMT_DEV void cascade_sp_program(const Blk& blk, const Smem& s, const Config& cf,
 
 namespace {
 
-__global__ void cascade_sp_kernel(const int* __restrict__ colour_in, const int* __restrict__ kind_in,
-                                  const long long* __restrict__ sub_keys,
-                                  const int* __restrict__ trips_in, const int* __restrict__ elim_in,
-                                  const int* __restrict__ frozen_in, int* __restrict__ colour_out,
-                                  int* __restrict__ kind_out, int* __restrict__ trips_out,
-                                  int* __restrict__ elim_out, int* __restrict__ new_out,
-                                  int* __restrict__ act_out, int* __restrict__ frozen_out,
-                                  bool* __restrict__ active_out, int* __restrict__ reasons_out,
-                                  tmt::Config cf) {
-  extern __shared__ int smem[];
-  __shared__ int scratch;
-  const int n = cf.R * cf.C;
+// 32 boards (warps) an SM: ptxas keeps each thread within 64 registers
+template <class Ln>
+__global__ void __launch_bounds__(32, 32)
+    cascade_sp_kernel(const int* __restrict__ colour_in, const int* __restrict__ kind_in,
+                      const long long* __restrict__ sub_keys, const int* __restrict__ trips_in,
+                      const int* __restrict__ elim_in, const int* __restrict__ frozen_in,
+                      int* __restrict__ colour_out, int* __restrict__ kind_out,
+                      int* __restrict__ trips_out, int* __restrict__ elim_out,
+                      int* __restrict__ new_out, int* __restrict__ act_out,
+                      int* __restrict__ frozen_out, bool* __restrict__ active_out,
+                      int* __restrict__ reasons_out, tmt::Config cf) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const size_t b = blockIdx.x;
-  const tmt::Block blk{n, static_cast<int>(threadIdx.x), &scratch};
-  const tmt::Smem s(smem, cf.R, cf.C);
-  blk.each([&](int i) {
+  tmt::Smem<Ln> s;
+  s.carve(smem, cf.R, cf.C);
+  const int n = s.L.n();
+  const tmt::Warp w{n, static_cast<int>(threadIdx.x)};
+  w.each([&](int i) {
     s.x[i] = colour_in[b * n + i];
     s.k[i] = kind_in[b * n + i];
   });
   tmt::BoardState st{trips_in[b], elim_in[b], frozen_in[b], 0, 0, 0, false};
-  tmt::cascade_sp_program(blk, s, cf, static_cast<uint32_t>(sub_keys[2 * b]),
+  tmt::cascade_sp_program(w, s, cf, static_cast<uint32_t>(sub_keys[2 * b]),
                           static_cast<uint32_t>(sub_keys[2 * b + 1]), st);
-  blk.each([&](int i) {
+  w.each([&](int i) {
     colour_out[b * n + i] = s.x[i];
     kind_out[b * n + i] = s.k[i];
   });
-  if (threadIdx.x == 0) {
+  if (w.leader()) {
     trips_out[b] = st.trips;
     elim_out[b] = st.elim;
     new_out[b] = st.created;
@@ -552,7 +577,25 @@ __global__ void cascade_sp_kernel(const int* __restrict__ colour_in, const int* 
   }
 }
 
+const auto kernel = cascade_sp_kernel<tmt::Geometry>;
+
 }  // namespace
+
+// Shared memory of one board, in bytes.
+extern "C" long long tmt_cascade_sp_chunk_smem(int R, int C) {
+  return static_cast<long long>(tmt::smem_bytes<tmt::Geometry>(R, C));
+}
+
+// Boards in flight per SM at R x C, from the occupancy calculator (0 when
+// a board does not fit).
+extern "C" int tmt_cascade_sp_chunk_occupancy(int R, int C) {
+  const size_t smem = tmt::smem_bytes<tmt::Geometry>(R, C);
+  int blocks = 0;
+  if (!tmt::takes(R, C) || tmt::allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32, smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
 
 // Launches the kernel for B boards on `stream`; returns the cudaError_t of
 // the launch (0 on success).  colour/kind in and out: int32[B, R, C];
@@ -566,19 +609,15 @@ extern "C" int tmt_cascade_sp(const int* colour_in, const int* kind_in, const lo
                               int limit, int cookie, int v_laser, int h_laser, int bomb,
                               void* stream) {
   if (B == 0) return 0;
-  const int n = R * C;
-  if (n > 1024 || R < 1 || C < 1 || K < 1 || K > 65535) return cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const size_t smem = tmt::smem_ints(R, C) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(cascade_sp_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!tmt::takes(R, C) || R * C > 65535 || K < 1 || K > 65535) return cudaErrorInvalidValue;
+  const size_t smem = tmt::smem_bytes<tmt::Geometry>(R, C);
   const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0,
                        bomb != 0};
-  cascade_sp_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      colour_in, kind_in, sub_keys, trips_in, elim_in, frozen_in, colour_out, kind_out,
-      trips_out, elim_out, new_out, act_out, frozen_out, active_out, reasons_out, cf);
+  const cudaError_t err = tmt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      colour_in, kind_in, sub_keys, trips_in, elim_in, frozen_in, colour_out, kind_out, trips_out,
+      elim_out, new_out, act_out, frozen_out, active_out, reasons_out, cf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -586,6 +625,8 @@ extern "C" int tmt_cascade_sp(const int* colour_in, const int* kind_in, const lo
 
 #include <vector>
 
+// As tmt_cascade_sp, on the host; returns 0, or -1 for a board shape the
+// library's geometry does not take.
 extern "C" int tmt_cascade_sp_host(const int* colour_in, const int* kind_in,
                                    const long long* sub_keys, const int* trips_in,
                                    const int* elim_in, const int* frozen_in, int* colour_out,
@@ -593,19 +634,21 @@ extern "C" int tmt_cascade_sp_host(const int* colour_in, const int* kind_in,
                                    int* act_out, int* frozen_out, bool* active_out,
                                    int* reasons_out, int B, int R, int C, int K, int max_cascades,
                                    int limit, int cookie, int v_laser, int h_laser, int bomb) {
+  if (!tmt::takes(R, C)) return -1;
   const int n = R * C;
-  std::vector<int> smem(tmt::smem_ints(R, C));
-  const tmt::Block blk{n};
-  const tmt::Smem s(smem.data(), R, C);
+  const tmt::Warp w{n};
   const tmt::Config cf{R, C, K, max_cascades, limit, cookie != 0, v_laser != 0, h_laser != 0,
                        bomb != 0};
+  std::vector<uint64_t> smem(tmt::smem_bytes<tmt::Geometry>(R, C) / 8 + 2);
+  tmt::Smem<tmt::Geometry> s;
+  s.carve(reinterpret_cast<unsigned char*>(smem.data()), R, C);
   for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
     for (int i = 0; i < n; ++i) {
       s.x[i] = colour_in[b * n + i];
       s.k[i] = kind_in[b * n + i];
     }
     tmt::BoardState st{trips_in[b], elim_in[b], frozen_in[b], 0, 0, 0, false};
-    tmt::cascade_sp_program(blk, s, cf, static_cast<uint32_t>(sub_keys[2 * b]),
+    tmt::cascade_sp_program(w, s, cf, static_cast<uint32_t>(sub_keys[2 * b]),
                             static_cast<uint32_t>(sub_keys[2 * b + 1]), st);
     for (int i = 0; i < n; ++i) {
       colour_out[b * n + i] = s.x[i];

@@ -1,8 +1,9 @@
 // Settled effective-action mask of boards with specials for Hopper (sm_90a),
-// one thread block per board.
+// one thread block per board, the cells and actions looped over its threads.
 //
 // Replaces the TPU kernel `settled_mask_sp` of
-// tile_match_tpu/ops/pallas_cascade.py (body `_mask_sp_kernel`, stencils
+// tile_match_tpu/ops/pallas_cascade.py:1039 (call :1051, body `_mask_sp_kernel`
+// :1032, stencils
 // `_settled_mask_sp_tile`).  Its plain PyTorch version is
 // `effective_mask_settled` in tile_match_tpu_torch/ops/effective.py, and the
 // two are equal bit for bit.
@@ -17,7 +18,8 @@
 // coalesced loads and writes the mask row of the board contiguously; the
 // TPU's batch-on-lanes transposes are gone.
 //
-// Limits: R * C <= 1024 (one thread per cell for the loads).
+// Limits: the board (8 bytes a cell) fits a block's shared memory; a block
+// has at most 256 threads, which loop over the cells and the actions.
 
 #include "block.cuh"
 #include "mask.cuh"
@@ -49,13 +51,12 @@ namespace {
 __global__ void mask_sp_kernel(const int* __restrict__ colour, const int* __restrict__ kind,
                                bool* __restrict__ mask, int R, int C, bool any_special) {
   extern __shared__ int smem[];
-  __shared__ int scratch;
   const int n = R * C;
   int* x = smem;
   int* k = x + n;
   const size_t b = blockIdx.x;
-  const tmt::Block blk{n, static_cast<int>(threadIdx.x), &scratch};
-  blk.each([&](int i) {
+  const tmt::Block blk{static_cast<int>(threadIdx.x)};
+  blk.each_of(n, [&](int i) {
     x[i] = colour[b * n + i];
     k[i] = kind[b * n + i];
   });
@@ -65,15 +66,38 @@ __global__ void mask_sp_kernel(const int* __restrict__ colour, const int* __rest
 
 }  // namespace
 
+constexpr int kMaskThreads = 256;
+
+// threads of a block: one a cell up to kMaskThreads
+int mask_threads(int n) { return n < kMaskThreads ? ((n + 31) / 32) * 32 : kMaskThreads; }
+
+// Shared memory of one board, in bytes.
+extern "C" long long tmt_settled_mask_sp_smem(int R, int C) {
+  return static_cast<long long>(R) * C * 2 * sizeof(int);
+}
+
+// Blocks (boards) in flight per SM at R x C, from the occupancy calculator.
+extern "C" int tmt_settled_mask_sp_occupancy(int R, int C) {
+  const int smem = static_cast<int>(tmt_settled_mask_sp_smem(R, C));
+  if (tmt::allow_smem(mask_sp_kernel, smem) != cudaSuccess) return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mask_sp_kernel,
+                                                    mask_threads(R * C), smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
 // Launches the mask for B boards on `stream`; returns the cudaError_t of the
 // launch (0 on success).  colour, kind: int32[B, R, C]; mask: bool[B, 2RC-R-C].
 extern "C" int tmt_settled_mask_sp(const int* colour, const int* kind, bool* mask, int B, int R,
                                    int C, int any_special, void* stream) {
   if (B == 0) return 0;
+  if (R < 1 || C < 1) return cudaErrorInvalidValue;
   const int n = R * C;
-  if (n > 1024 || R < 1 || C < 1) return cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(n) * 2 * sizeof(int);
+  const int threads = mask_threads(n);
+  const size_t smem = tmt_settled_mask_sp_smem(R, C);
+  const cudaError_t err = tmt::allow_smem(mask_sp_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   mask_sp_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       colour, kind, mask, R, C, any_special != 0);
   return static_cast<int>(cudaGetLastError());
@@ -87,7 +111,7 @@ extern "C" int tmt_settled_mask_sp_host(const int* colour, const int* kind, bool
                                         int R, int C, int any_special) {
   const int n = R * C;
   const size_t A = 2 * n - R - C;
-  const tmt::Block blk{n};
+  const tmt::Block blk{};
   for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
     tmt::mask_program(blk, colour + b * n, kind + b * n, mask + b * A, R, C, any_special != 0);
   }

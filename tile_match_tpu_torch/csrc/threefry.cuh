@@ -34,25 +34,43 @@ TMT_HOST_DEV uint32_t randint_mult(uint32_t K) {
   return (m * m) % K;
 }
 
-// Colour of flat cell `cell` in jax.random.randint(fold_in(sub, t), (R, C),
-// 1, K + 1): split the folded key in two, draw 32 bits from each at the
-// cell's counter, and take JAX's unsigned double-width remainder.
-TMT_DEV int refill_colour(uint32_t s0, uint32_t s1, uint32_t t, uint32_t cell, uint32_t K,
-                          uint32_t mult) {
+// The refill draw of one trip: jax.random.randint(fold_in(sub, t), (R, C),
+// 1, K + 1).  The folded key and its two halves are the same for every cell
+// of the trip, so they are hashed once (three hashes); each cell then takes
+// two more, at its own flat index.
+struct RefillKeys {
+  uint32_t a0, a1, b0, b1;
+};
+
+TMT_DEV RefillKeys refill_keys(uint32_t s0, uint32_t s1, uint32_t t) {
   uint32_t f0 = 0, f1 = t;
   threefry2x32(s0, s1, f0, f1);  // fold_in
-  uint32_t a0 = 0, a1 = 0;
-  threefry2x32(f0, f1, a0, a1);  // split: first key
-  uint32_t b0 = 0, b1 = 1;
-  threefry2x32(f0, f1, b0, b1);  // split: second key
-  uint32_t h0 = 0, h1 = cell;
-  threefry2x32(a0, a1, h0, h1);
-  uint32_t l0 = 0, l1 = cell;
-  threefry2x32(b0, b1, l0, l1);
-  const uint32_t hi = h0 ^ h1;
-  const uint32_t lo = l0 ^ l1;
-  const uint32_t off = ((hi % K) * mult + lo % K) % K;
-  return 1 + static_cast<int>(off);
+  RefillKeys k;
+  k.a0 = 0;
+  k.a1 = 0;
+  threefry2x32(f0, f1, k.a0, k.a1);  // split: first key
+  k.b0 = 0;
+  k.b1 = 1;
+  threefry2x32(f0, f1, k.b0, k.b1);  // split: second key
+  return k;
+}
+
+// 32 bits of the draw with key (k0, k1) at the cell's counter.
+TMT_DEV uint32_t draw_word(uint32_t k0, uint32_t k1, uint32_t cell) {
+  uint32_t x0 = 0, x1 = cell;
+  threefry2x32(k0, k1, x0, x1);
+  return x0 ^ x1;
+}
+
+// A colour from the words of the two keys: JAX's unsigned double-width
+// remainder.
+TMT_DEV int colour_from(uint32_t hi, uint32_t lo, uint32_t K, uint32_t mult) {
+  return 1 + static_cast<int>(((hi % K) * mult + lo % K) % K);
+}
+
+// Colour of flat cell `cell`.
+TMT_DEV int refill_colour(const RefillKeys& k, uint32_t cell, uint32_t K, uint32_t mult) {
+  return colour_from(draw_word(k.a0, k.a1, cell), draw_word(k.b0, k.b1, cell), K, mult);
 }
 
 }  // namespace tmt

@@ -16,6 +16,7 @@ tensors and runs ``cascade_reference`` on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,8 +60,12 @@ def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tens
     return colour, elim, trips, truncated, mask
 
 
-def _kernel():
-    lib = cuda_build.load("cascade")
+@functools.lru_cache(maxsize=None)
+def _kernel(R: int, C: int, device: int):
+    """The launch function for R x C boards on card ``device``, after the
+    fit check: both once per shape and card."""
+    lib = cuda_build.load("cascade", cuda_build.shape_of(R, C))
+    cuda_build.check_fits(lib, "fused_cascade", R, C, "fused_cascade")
     fn = lib.tmt_fused_cascade
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -79,8 +84,6 @@ def fused_cascade(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
     B, R, C = colour.shape
     if (R, C) != (cfg.num_rows, cfg.num_cols):
         raise ValueError(f"board shape {(R, C)} does not match the config")
-    if R * C > 1024:
-        raise ValueError(f"fused_cascade takes at most 1024 cells, got {R * C}")
     if colour.dtype != torch.int32 or not colour.is_contiguous():
         raise ValueError("colour must be a contiguous int32 tensor")
     if (
@@ -97,8 +100,8 @@ def fused_cascade(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
     trips = torch.empty(B, dtype=torch.int32, device=dev)
     truncated = torch.empty(B, dtype=torch.bool, device=dev)
     mask = torch.empty(B, cfg.num_actions, dtype=torch.bool, device=dev)
-    fn = _kernel()
     with torch.cuda.device(dev):
+        fn = _kernel(R, C, dev.index)
         err = fn(
             colour.data_ptr(), sub_keys.data_ptr(), out.data_ptr(), elim.data_ptr(),
             trips.data_ptr(), truncated.data_ptr(), mask.data_ptr(),

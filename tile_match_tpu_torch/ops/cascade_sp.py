@@ -25,6 +25,7 @@ CUDA tensors and runs ``cascade_sp_reference`` on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -448,8 +449,12 @@ def cascade_sp_reference(
     return x, k, trips, elim, new, act, frozen, has_any_line(cfg, x), reasons
 
 
-def _kernel():
-    lib = cuda_build.load("cascade_sp")
+@functools.lru_cache(maxsize=None)
+def _kernel(R: int, C: int, device: int):
+    """The launch function for R x C boards on card ``device``, after the
+    fit check: both once per shape and card."""
+    lib = cuda_build.load("cascade_sp", cuda_build.shape_of(R, C))
+    cuda_build.check_fits(lib, "cascade_sp_chunk", R, C, "cascade_sp_chunk")
     fn = lib.tmt_cascade_sp
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -469,8 +474,6 @@ def cascade_sp_chunk(
     B, R, C = colour.shape
     if (R, C) != (cfg.num_rows, cfg.num_cols):
         raise ValueError(f"board shape {(R, C)} does not match the config")
-    if R * C > 1024:
-        raise ValueError(f"cascade_sp_chunk takes at most 1024 cells, got {R * C}")
     for name, t, dtype, shape in (
         ("colour", colour, torch.int32, (B, R, C)), ("kind", kind, torch.int32, (B, R, C)),
         ("sub_keys", sub_keys, torch.int64, (B, 2)), ("trips", trips, torch.int32, (B,)),
@@ -484,8 +487,8 @@ def cascade_sp_chunk(
     outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(6)]
     active = torch.empty(B, dtype=torch.bool, device=dev)
     o_trips, o_elim, o_new, o_act, o_frozen, o_reasons = outs
-    fn = _kernel()
     with torch.cuda.device(dev):
+        fn = _kernel(R, C, dev.index)
         err = fn(
             colour.data_ptr(), kind.data_ptr(), sub_keys.data_ptr(), trips.data_ptr(),
             elim.data_ptr(), frozen.data_ptr(), out_c.data_ptr(), out_k.data_ptr(),

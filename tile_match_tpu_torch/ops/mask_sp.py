@@ -10,6 +10,7 @@ tensors and runs ``effective_mask_settled`` on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,8 +22,12 @@ from .effective import effective_mask_settled
 launches = 0
 
 
-def _kernel():
+@functools.lru_cache(maxsize=None)
+def _kernel(R: int, C: int, device: int):
+    """The launch function for R x C boards on card ``device``, after the
+    fit check: both once per shape and card."""
     lib = cuda_build.load("mask_sp")
+    cuda_build.check_fits(lib, "settled_mask_sp", R, C, "settled_mask_sp")
     fn = lib.tmt_settled_mask_sp
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -46,8 +51,8 @@ def settled_mask_sp(cfg: EnvConfig, colour: torch.Tensor, kind: torch.Tensor) ->
         ):
             raise ValueError(f"{name} must be a contiguous int32[B, R, C] tensor on {colour.device}")
     mask = torch.empty(B, cfg.num_actions, dtype=torch.bool, device=colour.device)
-    fn = _kernel()
     with torch.cuda.device(colour.device):
+        fn = _kernel(R, C, colour.device.index)
         err = fn(
             colour.data_ptr(), kind.data_ptr(), mask.data_ptr(), B, R, C,
             int(cfg.any_special), torch.cuda.current_stream(colour.device).cuda_stream,

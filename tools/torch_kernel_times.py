@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's three CUDA kernels on one card, for the port
+package of a given checkout.
+
+    python tools/torch_kernel_times.py [--root DIR] [--reps 20]
+
+``--root`` is the root of a checkout whose ``tile_match_tpu_torch`` is
+imported and built (default: this one), so that two versions compare in
+one call on one card: run it for each in turns (parent, change, change,
+parent).  Prints one JSON line: the card's name and power limit, the root,
+and the mean ms per launch of
+
+- ``chip_smoke.py`` phase 3's inputs at 10x10x4 B=16384: K1 on uniform
+  random boards (also with no trip allowed, which leaves its load, mask
+  and store), K2 with the bomb and without it on sprinkled boards (limit
+  64), K3 on K2's output boards; K1 and K2 also on the first wave of
+  boards alone and on the boards with the most trips, one a streaming
+  multiprocessor (the latency of a lone board);
+- K1 on config 1's main path: the input of its launch in the second step
+  of a 16384-board ``BatchedTileMatchEnv`` (captured from ``engine``), in
+  full, its first 4224 boards, one board at a time (16 boards in turn, as
+  the Gym adapter's threefry engine launches it), and its longest board
+  alone; K2 one sprinkled board at a time;
+- K1 and K2 (with the bomb) at shapes outside ``bench.py``'s configs:
+  8x8x4 B=16384 and 36x36x6 B=256.
+
+Times are CUDA events around ``--reps`` launches after a warm-up, queued
+behind a sleep on the card so that the launches run back to back and a
+short one is timed without the host's call; the single-board times also
+as called, the host's wrapper included (``*_called_ms``).  With them the
+trips per board, and a digest of every output, equal for two versions
+that compute the same function.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, HERE)
+    import chip_smoke  # input makers and timer of this checkout
+
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: needs a CUDA card", file=sys.stderr)
+        return 1
+    from tile_match_tpu_torch import cuda_build, engine
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    dev = torch.device("cuda", 0)
+    digest = hashlib.sha1()
+
+    def queued_ms(fn):
+        fn()  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(args.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.reps
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        for t in out:
+            digest.update(t.cpu().numpy().tobytes())
+        return out, queued_ms(fn)
+
+    def one_at_a_time(kernel, boards):
+        """kernel on each single-board input of `boards` in turn: queued, and as called"""
+        it = iter(range(1 << 30))
+        fn = lambda: kernel(*boards[next(it) % len(boards)])  # noqa: E731
+        for b in boards:
+            for t in kernel(*b):
+                digest.update(t.cpu().numpy().tobytes())
+        return queued_ms(fn), chip_smoke._time_ms(fn, args.reps)
+
+    rec = {"smi": smi, "root": root, "package": os.path.dirname(cascade.__file__)}
+    B = chip_smoke.MAIN_BATCH
+    cfg1 = chip_smoke._config(10, 10, 4)
+    colour, sub = chip_smoke._random_inputs(10, 10, 4, B, seed=7, device=dev)
+    out1, rec["K1_ms"] = timed(lambda: cascade.fused_cascade(cfg1, colour, sub))
+    wave = torch.cuda.get_device_properties(dev).multi_processor_count * 32  # boards in flight
+    rec["wave"] = wave
+    _, rec["K1_one_wave_ms"] = timed(lambda: cascade.fused_cascade(cfg1, colour[:wave], sub[:wave]))
+    cfg0 = dataclasses.replace(cfg1, max_cascades=0)  # no trip: the load, the mask, the store
+    _, rec["K1_no_trip_ms"] = timed(lambda: cascade.fused_cascade(cfg0, colour, sub))
+    cfg3 = chip_smoke._config(10, 10, 4, 30, chip_smoke.ALL_SPECIALS)
+    inputs = chip_smoke.sprinkled_inputs(10, 10, 4, B, seed=11, device=dev)
+    out, rec["K2_ms"] = timed(lambda: cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=64))
+    first = [t[:wave] for t in inputs]
+    _, rec["K2_one_wave_ms"] = timed(lambda: cascade_sp.cascade_sp_chunk(cfg3, *first, limit=64))
+    for name, trips in (("K1", out1[2]), ("K2", out[2] - inputs[3])):
+        rec[f"{name}_trips_mean"] = float(trips.float().mean())
+        rec[f"{name}_trips_max"] = int(trips.max())
+    # one board a streaming multiprocessor: the boards with the most trips
+    sms = wave // 32
+    top1 = out1[2].topk(sms).indices
+    _, rec["K1_lone_ms"] = timed(lambda: cascade.fused_cascade(cfg1, colour[top1], sub[top1]))
+    top2 = (out[2] - inputs[3]).topk(sms).indices
+    lone = [t[top2] for t in inputs]
+    _, rec["K2_lone_ms"] = timed(lambda: cascade_sp.cascade_sp_chunk(cfg3, *lone, limit=64))
+    cfg_nb = chip_smoke._config(10, 10, 4, 30, chip_smoke.NO_BOMB)
+    nb = chip_smoke.sprinkled_inputs(10, 10, 4, B, seed=10 * 100 + B + 1, device=dev,
+                                     kinds=[2, 3, -1])
+    _, rec["K2_nobomb_ms"] = timed(lambda: cascade_sp.cascade_sp_chunk(cfg_nb, *nb, limit=64))
+    _, rec["K3_ms"] = timed(lambda: (mask_sp.settled_mask_sp(cfg3, out[0], out[1]),))
+
+    # config 1's main path: K1's input in the second step of the batched env
+    captured = []
+    launch = engine.fused_cascade
+
+    def capture(cfg, moved, keys):
+        captured.append((moved.clone(), keys.clone()))
+        return launch(cfg, moved, keys)
+
+    engine.fused_cascade = capture
+    try:
+        env = BatchedTileMatchEnv(cfg1, B, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(chip_smoke.SEED)
+        states, ts = env.reset(trandom.PRNGKey(chip_smoke.SEED, dev))
+        for _ in range(2):
+            mask = ts.info.effective_actions
+            scores = torch.rand(mask.shape, generator=gen, device=dev)
+            states, ts = env.step(states, torch.where(mask, scores, -1.0).argmax(-1))
+    finally:
+        engine.fused_cascade = launch
+    moved, keys = captured[-1]
+    main_out, rec["K1_main_ms"] = timed(lambda: cascade.fused_cascade(cfg1, moved, keys))
+    rec["K1_main_trips_mean"] = float(main_out[2].float().mean())
+    rec["K1_main_trips_max"] = int(main_out[2].max())
+    _, rec["K1_main_b4224_ms"] = timed(lambda: cascade.fused_cascade(cfg1, moved[:4224], keys[:4224]))
+    singles = [(cfg1, moved[b:b + 1].clone(), keys[b:b + 1].clone()) for b in range(16)]
+    rec["K1_b1_ms"], rec["K1_b1_called_ms"] = one_at_a_time(cascade.fused_cascade, singles)
+    worst = int(main_out[2].argmax())
+    longest = [(cfg1, moved[worst:worst + 1].clone(), keys[worst:worst + 1].clone())]
+    rec["K1_b1_longest_ms"], _ = one_at_a_time(cascade.fused_cascade, longest)
+    singles = [(cfg3, *(t[b:b + 1].clone() for t in inputs)) for b in range(16)]
+    rec["K2_b1_ms"], rec["K2_b1_called_ms"] = one_at_a_time(
+        lambda *a: cascade_sp.cascade_sp_chunk(*a, limit=64), singles)
+
+    # shapes outside bench.py's configs
+    for R, C, K, b in ((8, 8, 4, B), (36, 36, 6, 256)):
+        tag = f"{R}x{C}x{K}_b{b}"
+        cfg = chip_smoke._config(R, C, K)
+        colour, sub = chip_smoke._random_inputs(R, C, K, b, seed=R * C, device=dev)
+        cfg_sp = chip_smoke._config(R, C, K, 30, chip_smoke.ALL_SPECIALS)
+        sp = chip_smoke.sprinkled_inputs(R, C, K, b, seed=R * C + 1, device=dev)
+        try:
+            _, rec[f"K1_{tag}_ms"] = timed(lambda: cascade.fused_cascade(cfg, colour, sub))
+            _, rec[f"K2_{tag}_ms"] = timed(
+                lambda: cascade_sp.cascade_sp_chunk(cfg_sp, *sp, limit=64))
+        except ValueError as e:  # a version that refuses the shape
+            rec[f"{tag}_refused"] = str(e)
+
+    rec["outputs_sha1"] = digest.hexdigest()
+    summary = getattr(cuda_build, "ptxas_summary", None)  # absent from older checkouts
+    rec["ptxas"] = {  # registers and spills of each kernel built by this process
+        src: summary(log) for src, log in cuda_build.build_logs.items()
+    } if summary else None
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,11 +5,11 @@
 
 Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
-  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/ — the
-     cascades once for each board shape of at most 32 by 32 that the run
-     uses and once for larger boards — one nvcc a library, all at once,
-     and prints their registers and spills and the boards each keeps in
-     flight per SM at 10x10 and 36x36;
+  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/ — each
+     once for every board shape of at most 32 by 32 that the run uses and
+     once for larger boards — one nvcc a library, all at once, and prints
+     their registers and spills and the boards each keeps in flight per SM
+     at 10x10 and 36x36;
   3. holds each kernel against its plain PyTorch version on the card, bit
      for bit in every output — K1 fused_cascade at 10x10x4 B=16384, 5x5x3
      B=1000, 20x20x6 B=1024 and 36x36x6 B=256 (1,296 cells); K2
@@ -19,13 +19,21 @@ Phases, one line each or more; any failure exits non-zero:
      B=16384 (cookie and both lasers), 6x6x3 B=1000 (both lasers), 8x8x4
      B=1000 (cookie), 20x20x6 B=1024 and 36x36x6 B=256 (cookie and both
      lasers), and on 8x8x4 B=1024 boards where two cookie lines cross in
-     both tails — and times both versions at 10x10x4 B=16384;
+     both tails — and times both versions at 10x10x4 B=16384 (each kernel
+     as called, back to back with the host's call, the kernels line's
+     ``ms``; and queued behind a sleep on the card, the device alone);
+     then K3 alone at 10x10x4 B=1, 130 and 16384, 20x20x6 B=1024
+     and 36x36x6 B=256, with specials and without (``any_special``), on
+     sprinkled boards;
+  4-8 run with the plain settled mask refused on CUDA tensors
+     (``plain_mask_refused``): K3 computes every settled mask on the card;
   4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1,
      _cfg3 and _nobomb.npz) through BatchedTileMatchEnv on the card, every
      field;
   5. runs config 1 (10x10, 4 colours, 30 moves, no specials) at batch 16384
      for 32 auto-resetting steps under a random effective policy, checks
-     that K1 ran on every step, and times the steps;
+     that K1 and K3 ran on every step, prints the launches a step, and
+     times the steps;
   6. runs config 3 (the same with cookie, both lasers and bomb), the
      flagship, the same way: K2 and K3 on every step, board invariants,
      truncation, and the cascade's telemetry;
@@ -44,6 +52,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -66,21 +75,34 @@ KERNELS = {
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
-# the board shapes the cascades' libraries are built for in phase 2: they
+# the board shapes the kernels' libraries are built for in phase 2: they
 # take their shape at compile time, and 36x36 stands for every board above
 # 32 by 32 (one library whose geometry is read at run time)
-CASCADE_SHAPES = {
+LIBRARY_SHAPES = {
     "cascade": ((10, 10), (5, 5), (20, 20), (36, 36)),
     "cascade_sp": ((10, 10), (6, 6), (8, 8), (20, 20), (36, 36)),
+    "mask_sp": ((10, 10), (6, 6), (8, 8), (20, 20), (36, 36)),
 }
+# K3 alone, with specials and without: (R, C, K, B)
+K3_SHAPES = ((10, 10, 4, 1), (10, 10, 4, 130), (10, 10, 4, 16384), (20, 20, 6, 1024),
+             (36, 36, 6, 256))
 # K2's no-bomb case table: (R, C, K, B, (cookie, vertical laser, horizontal laser))
 NO_BOMB_SHAPES = ((10, 10, 4, 16384, (1, 1, 1)), (6, 6, 3, 1000, (0, 1, 1)),
                   (8, 8, 4, 1000, (1, 0, 0)), (20, 20, 6, 1024, (1, 1, 1)),
                   (36, 36, 6, 256, (1, 1, 1)))
 ALL_SPECIALS = (1, 1, 1, 1)
 NO_BOMB = (1, 1, 1, 0)
+# phases 5-7, the batched main paths at 10x10x4, 30 moves: name -> (tag,
+# specials, the kernels every step must launch)
+MAIN_PATHS = {
+    "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp")),
+    "3": ("phase 6 (config 3)", ALL_SPECIALS, ("cascade_sp_chunk", "settled_mask_sp")),
+    "3-no-bomb": ("phase 7 (config 3 without the bomb)", NO_BOMB,
+                  ("cascade_sp_chunk", "settled_mask_sp")),
+}
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
+SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
 SEED = 0
 # H100 SXM peaks (published datasheet): HBM bytes/s, and the
 # non-tensor float32 rate, used as the ceiling for the integer work
@@ -271,6 +293,25 @@ def corner_boards(B, seed):
     return colour, np.ones_like(colour)
 
 
+def _queued_ms(fn, reps: int) -> float:
+    """Mean device ms of fn's launches, queued behind a sleep on the card so
+    that they run back to back and a short kernel is timed without the
+    host's call."""
+    import torch
+
+    fn()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
 
@@ -284,6 +325,13 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_ms(fn, reps: int):
+    """(mean ms of fn as called, back to back with the host's call: the
+    kernels line's ``ms``; mean ms queued behind a sleep: the device's time
+    alone)."""
+    return _time_ms(fn, reps), _queued_ms(fn, reps)
 
 
 def cascade_ops(cfg, refilled: int, trips: int) -> int:
@@ -341,12 +389,13 @@ def check_kernels(device, smi):
     cfg1 = _config(10, 10, 4)
     colour, sub = _random_inputs(10, 10, 4, MAIN_BATCH, seed=7, device=device)
     out = cascade.fused_cascade(cfg1, colour, sub)
-    ms = _time_ms(lambda: cascade.fused_cascade(cfg1, colour, sub), reps=20)
+    ms, queued = _kernel_ms(lambda: cascade.fused_cascade(cfg1, colour, sub), reps=20)
     plain_ms = _time_ms(lambda: cascade.cascade_reference(cfg1, colour, sub), reps=2)
     ops = cascade_ops(cfg1, int(out[1].sum()), int(out[2].sum()))
     b_ms, b_by = bound(_nbytes(colour, sub, *out), ops)
     rec["fused_cascade"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"phase 3 ok: K1 10x10x4 B={MAIN_BATCH} uniform random boards: kernel {ms:.4f} ms, "
+    print(f"phase 3 ok: K1 10x10x4 B={MAIN_BATCH} uniform random boards: kernel {ms:.4f} ms "
+          f"(queued {queued:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
 
     # K2 and K3, on boards with sprinkled specials
@@ -371,13 +420,14 @@ def check_kernels(device, smi):
     inputs = sprinkled_inputs(10, 10, 4, MAIN_BATCH, seed=11, device=device)
     T = cfg3.max_cascades
     out = cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T)
-    ms = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T), reps=20)
+    ms, queued = _kernel_ms(lambda: cascade_sp.cascade_sp_chunk(cfg3, *inputs, limit=T), reps=20)
     plain_ms = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg3, *inputs, limit=T), reps=2)
     refilled = int((out[3] - inputs[4]).sum())
     ops = cascade_ops(cfg3, refilled, int((out[2] - inputs[3]).sum()))
     b_ms, b_by = bound(_nbytes(*inputs, *out), ops)
     rec["cascade_sp_chunk"] = dict(max_abs_err=err2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"phase 3 ok: K2 10x10x4 B={MAIN_BATCH} sprinkled boards: kernel {ms:.4f} ms, "
+    print(f"phase 3 ok: K2 10x10x4 B={MAIN_BATCH} sprinkled boards: kernel {ms:.4f} ms "
+          f"(queued {queued:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
     # K2's no-bomb case table, with K3 on its output
     for R, C, K, B, flags in NO_BOMB_SHAPES:
@@ -399,12 +449,14 @@ def check_kernels(device, smi):
               f"{(got[2] - inputs[3]).float().mean().item():.2f}, {int(fresh.sum())} boards "
               f"frozen, per reason bit {by_bit}; K3 kernel == plain on its output")
         if (R, C, K, B) == (10, 10, 4, MAIN_BATCH):
-            ms_nb = _time_ms(lambda: cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=T), reps=20)
+            ms_nb, q_nb = _kernel_ms(lambda: cascade_sp.cascade_sp_chunk(cfg, *inputs, limit=T),
+                                     reps=20)
             plain_nb = _time_ms(lambda: cascade_sp.cascade_sp_reference(cfg, *inputs, limit=T), reps=2)
             refilled = int((got[3] - inputs[4]).sum())
             ops = cascade_ops(cfg, refilled, int((got[2] - inputs[3]).sum()))
             b_nb, by_nb = bound(_nbytes(*inputs, *got), ops)
-            print(f"phase 3 ok: {tag}: kernel {ms_nb:.4f} ms, plain {plain_nb:.4f} ms, "
+            print(f"phase 3 ok: {tag}: kernel {ms_nb:.4f} ms (queued {q_nb:.4f} ms), "
+                  f"plain {plain_nb:.4f} ms, "
                   f"bound {b_nb:.4f} ms ({by_nb}) ({smi})")
     # the corner in the tails of two crossing cookie lines survives
     cfg = _config(8, 8, 4, 30, NO_BOMB)
@@ -423,20 +475,69 @@ def check_kernels(device, smi):
 
     colour, kind = out[0], out[1]
     mask = mask_sp.settled_mask_sp(cfg3, colour, kind)
-    ms = _time_ms(lambda: mask_sp.settled_mask_sp(cfg3, colour, kind), reps=50)
+    ms, queued = _kernel_ms(lambda: mask_sp.settled_mask_sp(cfg3, colour, kind), reps=50)
     plain_ms = _time_ms(lambda: effective_mask_settled(cfg3, colour, kind), reps=5)
     b_ms, b_by = bound(_nbytes(colour, kind, mask), 24 * mask.numel())
     rec["settled_mask_sp"] = dict(max_abs_err=err3, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"phase 3 ok: K3 10x10x4 B={MAIN_BATCH} K2's output boards: kernel {ms:.4f} ms, "
+    print(f"phase 3 ok: K3 10x10x4 B={MAIN_BATCH} K2's output boards: kernel {ms:.4f} ms "
+          f"(queued {queued:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    # K3 alone: one board (the Gym adapter's), a batch that fills no whole
+    # block of boards, the main batch, config 4's shape and a board above
+    # 32x32, each with specials and without
+    for R, C, K, B in K3_SHAPES:
+        colour, kind = sprinkled_inputs(R, C, K, B, seed=R * 10 + B, device=device)[:2]
+        for flags in (ALL_SPECIALS, (0, 0, 0, 0)):
+            cfg = _config(R, C, K, 30, flags)
+            before = mask_sp.launches
+            got = mask_sp.settled_mask_sp(cfg, colour, kind)
+            want = effective_mask_settled(cfg, colour, kind)
+            torch.cuda.synchronize()
+            check(mask_sp.launches == before + 1, "K3: the wrapper did not launch the kernel")
+            tag = f"K3 {R}x{C}x{K} B={B} any_special={cfg.any_special}"
+            err3 = max(err3, _assert_equal((got,), (want,), ("mask",), tag))
+        print(f"phase 3: K3 {R}x{C}x{K} B={B} kernel == plain with specials and without")
+    rec["settled_mask_sp"]["max_abs_err"] = err3
     return rec
 
 
-def drive(cfg, device, smi, tag, modules):
+@contextlib.contextmanager
+def plain_mask_refused():
+    """Within: the plain settled mask (``ops.effective.effective_mask_settled``)
+    raises on a CUDA tensor, in every module of the port that bound it, so
+    that it provably serves nothing on the card; K3's wrapper serves every
+    settled mask there."""
+    from tile_match_tpu_torch import engine, parity  # noqa: F401  (bind before patching)
+    from tile_match_tpu_torch.envs import _threefry_driver, batched  # noqa: F401
+    from tile_match_tpu_torch.ops import cascade, effective, mask_sp  # noqa: F401
+
+    plain = effective.effective_mask_settled
+
+    def refused(cfg, colour, kind):
+        check(colour.device.type != "cuda", "the plain settled mask ran on a CUDA tensor")
+        return plain(cfg, colour, kind)
+
+    bound = [m for name, m in list(sys.modules.items())
+             if name.startswith("tile_match_tpu_torch") and
+             getattr(m, "effective_mask_settled", None) is plain]
+    for m in bound:
+        m.effective_mask_settled = refused
+    try:
+        yield
+    finally:
+        for m in bound:
+            m.effective_mask_settled = plain
+
+
+def drive(cfg, device, smi, tag, required):
     """Run ``cfg`` at MAIN_BATCH for MAIN_STEPS auto-resetting steps through
     BatchedTileMatchEnv under a random effective policy.  Every kernel
-    module in ``modules`` must launch on every step.  Returns the launch
-    count of each module over the run."""
+    named in ``required`` must launch on every step.  Returns the launch
+    count of each kernel over the run (``launches``), the host-clock ms of
+    every step, each ending in a device synchronisation (``step_ms``), and
+    the steps in which boards auto-reset (``reset_steps``)."""
+    import importlib
+
     import torch
 
     from tile_match_tpu_torch import engine
@@ -444,6 +545,8 @@ def drive(cfg, device, smi, tag, modules):
     from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
     from tile_match_tpu_torch.ops.lines import has_any_line
 
+    modules = {name: importlib.import_module(f"tile_match_tpu_torch.ops.{mod}")
+               for name, (mod, _, _) in KERNELS.items()}
     env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -453,7 +556,7 @@ def drive(cfg, device, smi, tag, modules):
     engine.reset_cascade_stats()
     torch.cuda.synchronize()
     truncated = dones = trips = 0
-    step_ms = []
+    step_ms, reset_steps = [], []
     for t in range(MAIN_STEPS):
         mask = ts.info.effective_actions
         check(bool(mask.any(-1).all()), f"{tag} step {t}: a board has no effective action")
@@ -465,13 +568,18 @@ def drive(cfg, device, smi, tag, modules):
         states, ts = env.step(states, actions)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        for n, m in modules.items():
-            check(m.launches > before[n], f"{tag} step {t}: kernel {n} was not launched")
+        for n in required:
+            check(modules[n].launches > before[n], f"{tag} step {t}: kernel {n} was not launched")
         check(bool((ts.reward > 0).all()), f"{tag} step {t}: an effective move scored 0")
         truncated += int(ts.info.truncated.sum())
-        dones += int(ts.done.sum())
+        done = int(ts.done.sum())
+        dones += done
+        if done:
+            reset_steps.append(t)
         trips += int(ts.info.cascade_trips.sum())
     launches = {n: m.launches for n, m in modules.items()}
+    print(f"{tag} launches a step: "
+          f"{', '.join(f'{n} {c / MAIN_STEPS:.3f}' for n, c in launches.items())}")
     board_steps = MAIN_BATCH * MAIN_STEPS
     check(dones == MAIN_BATCH, f"{tag}: expected one auto-reset of every board, saw {dones} dones")
     check(truncated * 10000 < board_steps, f"{tag}: {truncated} truncated board-steps of {board_steps}")
@@ -498,6 +606,44 @@ def drive(cfg, device, smi, tag, modules):
               f"{trips / MAIN_STEPS:.1f} trips per step, "
               f"{1 - full_trips / max(trips, 1):.4f} of trips taken in the kernel, "
               f"K2 freezes per reason bit {stats['reasons']}")
+    return {"launches": launches, "step_ms": step_ms, "reset_steps": reset_steps}
+
+
+def main_paths(device, smi):
+    """Phases 4-8, the port's main paths on the card.  Returns each
+    kernel's launches over the batched drives (phases 5-7)."""
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+
+    # 4. the recorded JAX rollouts, on the card
+    for path in (FIXTURE, FIXTURE_CFG3, FIXTURE_NOBOMB):
+        n = replay_fixture(device, path)
+        print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
+
+    # 5-7. the batched main paths; each kernel's launches summed over them
+    launches = {name: 0 for name in KERNELS}
+    for tag, specials, required in MAIN_PATHS.values():
+        run = drive(_config(10, 10, 4, 30, specials), device, smi, tag, required)
+        for name, n in run["launches"].items():
+            launches[name] += n
+
+    # 8. the Gym entry point: its two engines, one board at a time
+    for m in (cascade, cascade_sp, mask_sp):
+        m.launches = 0
+    golden_ms = replay_golden(device)
+    check(cascade.launches + cascade_sp.launches + mask_sp.launches == 0,
+          "phase 8: the numpy-parity engine launched a kernel")
+    print(f"phase 8 ok: replayed {len(golden_ms)} steps of golden_episodes.json bit for bit "
+          f"through ParityEngine: {sum(golden_ms) / len(golden_ms):.1f} ms/step ({smi})")
+    gym_ms = replay_gym(device)
+    gym_launches = {"fused_cascade": cascade.launches, "cascade_sp_chunk": cascade_sp.launches,
+                    "settled_mask_sp": mask_sp.launches}
+    check(all(n > 0 for n in gym_launches.values()),
+          f"phase 8: the threefry episodes did not launch every kernel: {gym_launches}")
+    for (mode, name), ms in gym_ms.items():
+        print(f"phase 8: {mode} engine, specials {name}: {len(ms)} steps bit for bit, "
+              f"{sum(ms) / len(ms):.1f} ms/step (median {sorted(ms)[len(ms) // 2]:.1f} ms) ({smi})")
+    print(f"phase 8 ok: replayed {len(gym_ms)} recorded JAX Gym episodes; threefry-engine "
+          f"launches {gym_launches}")
     return launches
 
 
@@ -520,12 +666,11 @@ def main() -> int:
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from tile_match_tpu_torch import cuda_build
-    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
 
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
-    libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in CASCADE_SHAPES.items()
-            for R, C in shapes] + [("mask_sp", None)]
+    libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in LIBRARY_SHAPES.items()
+            for R, C in shapes]
     cuda_build.build_all(libs)
     stems = [src if shape is None else f"{src}-{shape[0]}x{shape[1]}" for src, shape in libs]
     for lib in libs:
@@ -538,8 +683,7 @@ def main() -> int:
     for name, (_, src, _) in KERNELS.items():
         per_sm = {}
         for R, C in ((10, 10), (36, 36)):
-            shape = cuda_build.shape_of(R, C) if src in CASCADE_SHAPES else None
-            fn = getattr(cuda_build.load(src, shape), f"tmt_{name}_occupancy")
+            fn = getattr(cuda_build.load(src, cuda_build.shape_of(R, C)), f"tmt_{name}_occupancy")
             fn.argtypes = [ctypes.c_int, ctypes.c_int]
             fn.restype = ctypes.c_int
             per_sm[f"{R}x{C}"] = fn(R, C)
@@ -549,39 +693,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     rec = check_kernels(device, smi)
 
-    # 4. the recorded JAX rollouts, on the card
-    for path in (FIXTURE, FIXTURE_CFG3, FIXTURE_NOBOMB):
-        n = replay_fixture(device, path)
-        print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
-
-    # 5-7. the batched main paths; each kernel's launches summed over them
-    specials = {"cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}
-    launches = drive(_config(10, 10, 4), device, smi, "phase 5 (config 1)",
-                     {"fused_cascade": cascade})
-    launches.update(drive(_config(10, 10, 4, 30, ALL_SPECIALS), device, smi, "phase 6 (config 3)",
-                          specials))
-    for name, n in drive(_config(10, 10, 4, 30, NO_BOMB), device, smi,
-                         "phase 7 (config 3 without the bomb)", specials).items():
-        launches[name] += n
-
-    # 8. the Gym entry point: its two engines, one board at a time
-    for m in (cascade, cascade_sp, mask_sp):
-        m.launches = 0
-    golden_ms = replay_golden(device)
-    check(cascade.launches + cascade_sp.launches + mask_sp.launches == 0,
-          "phase 8: the numpy-parity engine launched a kernel")
-    print(f"phase 8 ok: replayed {len(golden_ms)} steps of golden_episodes.json bit for bit "
-          f"through ParityEngine: {sum(golden_ms) / len(golden_ms):.1f} ms/step ({smi})")
-    gym_ms = replay_gym(device)
-    gym_launches = {"fused_cascade": cascade.launches, "cascade_sp_chunk": cascade_sp.launches,
-                    "settled_mask_sp": mask_sp.launches}
-    check(all(n > 0 for n in gym_launches.values()),
-          f"phase 8: the threefry episodes did not launch every kernel: {gym_launches}")
-    for (mode, name), ms in gym_ms.items():
-        print(f"phase 8: {mode} engine, specials {name}: {len(ms)} steps bit for bit, "
-              f"{sum(ms) / len(ms):.1f} ms/step (median {sorted(ms)[len(ms) // 2]:.1f} ms) ({smi})")
-    print(f"phase 8 ok: replayed {len(gym_ms)} recorded JAX Gym episodes; threefry-engine "
-          f"launches {gym_launches}")
+    # 4-8. the main paths, with the plain settled mask refused on the card
+    with plain_mask_refused():
+        launches = main_paths(device, smi)
+    print("phases 4-8 ok: the plain settled mask ran on no CUDA tensor")
 
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -111,6 +111,16 @@ def test_batched_env_matches_functional_api():
     assert torch.equal(t1.reward, t2.reward)
 
 
+def test_batched_env_default_device_is_the_card(monkeypatch):
+    """``device=None`` means the card: without one it raises, and nothing
+    falls back to the CPU; a device passed by name still runs there."""
+    _, tc = cfgs(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbat.BatchedTileMatchEnv(tc, 4)
+    assert tbat.BatchedTileMatchEnv(tc, 4, "cpu").device == torch.device("cpu")
+
+
 def test_interop_round_trip():
     """The JAX package's state and TimeStep, as recorded in the fixture."""
     d = np.load(FIXTURE)

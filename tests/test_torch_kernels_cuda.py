@@ -37,9 +37,9 @@ def _libraries():
     """Build every kernel library the tests run at once, one nvcc each (the
     cascades take their board shape at compile time)."""
     if torch.cuda.is_available():
-        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES}
-        cuda_build.build_all([(src, cuda_build.shape_of(R, C)) for src in ("cascade", "cascade_sp")
-                              for R, C in shapes] + ["mask_sp"])
+        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES}
+        cuda_build.build_all([(src, cuda_build.shape_of(R, C))
+                              for src in ("cascade", "cascade_sp", "mask_sp") for R, C in shapes])
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -198,6 +198,45 @@ def test_settled_mask_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, l
     assert torch.equal(got, effective_mask_settled(cfg, colour, kind))
 
 
+K3_SHAPES = [(10, 10, 4, 1), (10, 10, 4, 130), (5, 5, 3, 77), (20, 20, 6, 8192), (32, 32, 5, 33),
+             (6, 32, 4, 64), (1, 8, 3, 9), (36, 36, 6, 256), (80, 80, 6, 7), (150, 150, 6, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_special", [True, False], ids=["specials", "no-specials"])
+@pytest.mark.parametrize("R,C,K,B", K3_SHAPES)
+def test_settled_mask_kernel_with_and_without_specials(cuda_device, R, C, K, B, any_special):
+    """K3 serves every settled mask: one board, batches that fill no whole
+    block of boards, boards with specials under a config without them, and
+    boards too large for four a block (80x80 takes two, 150x150 one)."""
+    kw = {} if any_special else {"colourless_specials": (), "colour_specials": ()}
+    cfg = _specials(R, C, K, **kw)
+    colour, kind = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=R * C + B, device=cuda_device)[:2]
+    before = tmask.launches
+    got = tmask.settled_mask_sp(cfg, colour, kind)
+    torch.cuda.synchronize()
+    assert tmask.launches == before + 1
+    assert torch.equal(got, effective_mask_settled(cfg, colour, kind))
+
+
+@pytest.mark.cuda
+def test_no_specials_env_launches_the_settled_mask_kernel(cuda_device):
+    """Config 1's step on the card computes its incoming mask with K3, and
+    the plain mask is never called on a CUDA tensor."""
+    smoke = _chip_smoke()
+    cfg = _no_specials(10, 10, 4, moves=5)
+    env = BatchedTileMatchEnv(cfg, 64, cuda_device)
+    key = trandom.PRNGKey(4, cuda_device)
+    with smoke.plain_mask_refused():
+        states, ts = env.reset(key)
+        for _ in range(6):  # crosses the reset after move 5
+            key, ka = trandom.split(key).unbind(0)
+            before = tmask.launches
+            states, ts = env.step(states, random_effective(ka, ts))
+            torch.cuda.synchronize()
+            assert tmask.launches > before
+
+
 @pytest.mark.cuda
 def test_specials_kernels_refuse_bad_input(cuda_device):
     cfg = _specials(6, 6, 3)
@@ -210,6 +249,8 @@ def test_specials_kernels_refuse_bad_input(cuda_device):
         tsp.cascade_sp_chunk(cfg, colour, kind, keys[:3], trips, elim, frozen, limit=8)
     with pytest.raises(ValueError):
         tmask.settled_mask_sp(cfg, colour, kind.long())
+    with pytest.raises(ValueError):  # not contiguous
+        tmask.settled_mask_sp(cfg, colour.transpose(1, 2), kind.transpose(1, 2))
     # a single-laser config without the bomb runs, as its plain version
     v_only = _specials(6, 6, 3, colour_specials=("vertical_laser",))
     got = tsp.cascade_sp_chunk(v_only, colour, kind, keys, trips, elim, frozen, limit=8)
@@ -242,19 +283,16 @@ def test_specials_env_on_card_equals_env_on_cpu(cuda_device, R, C, K, B, moves, 
             assert torch.equal(x, y)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("specials", ["none", "all"])
-def test_large_board_env_on_card_equals_env_on_cpu(cuda_device, specials):
-    """36x36 boards (1,296 cells) step through the kernels on the card."""
+def _large_board_env_matches(cuda_device, size, specials, B, steps):
     kw = {"colourless_specials": (), "colour_specials": ()} if specials == "none" else {}
-    cfg = _specials(36, 36, 6, moves=2, **kw)
+    cfg = _specials(size, size, 6, moves=2, **kw)
     out = {}
     for dev in ("cpu", cuda_device):
-        env = BatchedTileMatchEnv(cfg, 8, dev)
+        env = BatchedTileMatchEnv(cfg, B, dev)
         key = trandom.PRNGKey(9, dev)
         states, ts = env.reset(key)
         rows = []
-        for t in range(3):
+        for t in range(steps):
             key, ka = trandom.split(key).unbind(0)
             states, ts = env.step(states, random_effective(ka, ts))
             rows.append([states.colour, states.kind, ts.reward, ts.info.effective_actions,
@@ -263,6 +301,22 @@ def test_large_board_env_on_card_equals_env_on_cpu(cuda_device, specials):
     for a, b in zip(*out.values()):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("specials", ["none", "all"])
+def test_large_board_env_on_card_equals_env_on_cpu(cuda_device, specials):
+    """36x36 boards (1,296 cells) step through the kernels on the card."""
+    _large_board_env_matches(cuda_device, 36, specials, B=8, steps=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,specials", [(80, "all"), (100, "none")])
+def test_boards_too_large_for_four_masks_a_block_step_on_card(cuda_device, size, specials):
+    """Boards whose settled mask takes fewer than four boards a block (K3
+    picks the boards a block from the shape): 80x80 with specials, within
+    K2's limit, and 100x100 without, within K1's."""
+    _large_board_env_matches(cuda_device, size, specials, B=4, steps=2)
 
 
 @pytest.mark.cuda

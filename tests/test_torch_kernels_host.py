@@ -19,6 +19,7 @@ Needs ``g++``; skips without it.
 import ctypes
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -84,14 +85,17 @@ def host_k1(tmp_path_factory):
     return _k1_fn(_host_build(tmp_path_factory, "cascade"))
 
 
+def _k3_fn(lib):
+    k3 = lib.tmt_settled_mask_sp_host
+    k3.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    k3.restype = ctypes.c_int
+    return k3
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     libs = {name: _host_build(tmp_path_factory, name) for name in ("cascade_sp", "mask_sp")}
-    k2 = _k2_fn(libs["cascade_sp"])
-    k3 = libs["mask_sp"].tmt_settled_mask_sp_host
-    k3.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    k3.restype = ctypes.c_int
-    return k2, k3
+    return _k2_fn(libs["cascade_sp"]), _k3_fn(libs["mask_sp"])
 
 
 def _inputs(cfg, B, seed):
@@ -169,13 +173,17 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     with open(tmp_path / "mask.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: cuda_build.digest(n) for n in names}
-    assert after["cascade"] != before["cascade"] and after["mask_sp"] != before["mask_sp"]
-    assert after["cascade_sp"] == before["cascade_sp"]
+    assert after["cascade"] != before["cascade"]  # K1's mask epilogue
+    assert after["cascade_sp"] == before["cascade_sp"] and after["mask_sp"] == before["mask_sp"]
+    assert {p.name for p in cuda_build.sources("mask_sp")} == {
+        "mask_sp.cu", "trip.cuh", "block.cuh", "threefry.cuh"
+    }
     with open(tmp_path / "block.cuh", "a") as f:  # included through mask.cuh / threefry.cuh
         f.write("// edited\n")
     assert all(cuda_build.digest(n) != after[n] for n in names)
     # a board shape is a library of its own
-    assert len({cuda_build.digest("cascade", shape) for shape in (None, (10, 10), (10, 9))}) == 3
+    for n in ("cascade", "mask_sp"):
+        assert len({cuda_build.digest(n, shape) for shape in (None, (10, 10), (10, 9))}) == 3
 
 
 def _k1_run(k1, cfg, colour, keys):
@@ -352,3 +360,187 @@ def test_fixed_geometry_matches_plain(tmp_path_factory, R, C):
     keys = torch.zeros(1, 2, dtype=torch.int64)
     assert k1(other.data_ptr(), keys.data_ptr(), *(t.data_ptr() for t in out),
               1, R + 1, C, 4, 64) == -1
+
+
+# ---- K3, the settled mask, on cell bit masks --------------------------------
+
+
+def _k3_run(k3, cfg, colour, kind):
+    B, R, C = colour.shape
+    mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
+    assert k3(colour.data_ptr(), kind.data_ptr(), mask.data_ptr(), B, R, C,
+              int(cfg.any_special)) == 0
+    return mask
+
+
+def _k3_cfg(R, C, K, any_special):
+    if any_special:
+        return EnvConfig.create(R, C, K, 30)
+    return EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=())
+
+
+@pytest.fixture(scope="module")
+def host_k3(tmp_path_factory):
+    """K3's host build, per board shape as the card builds it: the library
+    of that shape at most 32 by 32, else the one of any shape."""
+    libs = {}
+
+    def get(shape):
+        if shape not in libs:
+            libs[shape] = _k3_fn(_host_build(tmp_path_factory, "mask_sp", shape))
+        return libs[shape]
+
+    return get
+
+
+def random_mask_boards(R, C, K, B, seed):
+    """Boards of colours 0..K with every kind: mostly normal (1), some
+    empty (0), lasers and bombs (2-4) and cookies (-1), wherever they
+    fall; runs included."""
+    rng = np.random.default_rng(seed)
+    colour = rng.integers(0, K + 1, size=(B, R, C)).astype(np.int32)
+    kind = rng.choice(np.array([1] * 12 + [0, 2, 3, 4, -1, -1], np.int32), size=(B, R, C))
+    return torch.from_numpy(colour), torch.from_numpy(kind)
+
+
+@pytest.mark.parametrize("any_special", [True, False], ids=["specials", "no-specials"])
+@pytest.mark.parametrize("library", ["fixed", "any"])
+@pytest.mark.parametrize("R,C,K", [(5, 5, 3), (8, 8, 4), (10, 10, 4), (20, 20, 6), (32, 32, 5),
+                                   (36, 36, 6)])
+def test_settled_mask_board_program_matches_plain(host_k3, R, C, K, library, any_special):
+    """K3 on random boards with every kind, built for the board's shape (the
+    card's library for boards up to 32 by 32; 36x36 has none, and takes the
+    one of any shape either way) and for any shape."""
+    shape = cuda_build.shape_of(R, C) if library == "fixed" else None
+    cfg = _k3_cfg(R, C, K, any_special)
+    colour, kind = random_mask_boards(R, C, K, 45, seed=R * C + K)  # not a multiple of 4
+    want = effective_mask_settled(cfg, colour, kind)
+    assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind), want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+def _stencils(R, C, a):
+    """The 8 stencils of action a: (run cells, the swapped cell whose
+    colour moves in, the cell whose kind guards the stencil), 2-D, in the
+    plain version's order, those with a cell off the board left out."""
+    n_down = C * (R - 1)
+    if a < n_down:
+        r, c = divmod(a, C)
+        P, Q = (r, c), (r + 1, c)
+        out = [([(r, c - 2), (r, c - 1)], Q, Q), ([(r, c - 1), (r, c + 1)], Q, (r, c + 1)),
+               ([(r, c + 1), (r, c + 2)], Q, (r, c + 2)), ([(r - 2, c), (r - 1, c)], Q, Q),
+               ([(r + 1, c - 2), (r + 1, c - 1)], P, P),
+               ([(r + 1, c - 1), (r + 1, c + 1)], P, (r + 1, c + 1)),
+               ([(r + 1, c + 1), (r + 1, c + 2)], P, (r + 1, c + 2)),
+               ([(r + 2, c), (r + 3, c)], P, (r + 3, c))]
+    else:
+        r, c = divmod(a - n_down, C - 1)
+        P, Q = (r, c), (r, c + 1)
+        out = [([(r - 2, c), (r - 1, c)], Q, Q), ([(r - 1, c), (r + 1, c)], Q, (r + 1, c)),
+               ([(r + 1, c), (r + 2, c)], Q, (r + 2, c)), ([(r, c - 2), (r, c - 1)], Q, Q),
+               ([(r - 2, c + 1), (r - 1, c + 1)], P, P),
+               ([(r - 1, c + 1), (r + 1, c + 1)], P, (r + 1, c + 1)),
+               ([(r + 1, c + 1), (r + 2, c + 1)], P, (r + 2, c + 1)),
+               ([(r, c + 2), (r, c + 3)], P, (r, c + 3))]
+    return [(cells, src, guard) for cells, src, guard in out
+            if all(0 <= y < R and 0 <= x < C for y, x in cells)], P, Q
+
+
+def painted_stencils(R, C, B, seed, variant):
+    """Line-free two-colour boards (colours 1 and 2) with one to three
+    stencils painted true: an action's run cells take the colour (3, or 0
+    with ``variant`` "colour0") of the swapped cell that moves in.  Then by
+    ``variant``: "cookie" makes each stencil's guard cell a cookie (kind -1,
+    its colour kept), so that the stencil fails; "special-pair" makes both
+    swapped cells specials (2-4) and a random third of the guard cells
+    cookies; "colour0" paints with colour 0 (colour-0 cells match each
+    other) and leaves the kinds normal.  Actions near the edges come up as
+    often as any other."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.indices((R, C))
+    colour = np.where((rows + cols) % 2 == 0, 1, 2)[None].repeat(B, 0).astype(np.int32)
+    kind = np.ones_like(colour)
+    n_actions = 2 * R * C - R - C
+    for b in range(B):
+        for _ in range(int(rng.integers(1, 4))):
+            stencils, P, Q = _stencils(R, C, int(rng.integers(0, n_actions)))
+            if not stencils:
+                continue
+            cells, src, guard = stencils[int(rng.integers(0, len(stencils)))]
+            pc = 0 if variant == "colour0" else 3
+            for y, x in (*cells, src):
+                colour[b, y, x] = pc
+            if variant == "cookie" or (variant == "special-pair" and rng.random() < 1 / 3):
+                kind[b, guard[0], guard[1]] = -1
+            if variant == "special-pair":
+                for y, x in (P, Q):
+                    kind[b, y, x] = int(rng.integers(2, 5))
+    return torch.from_numpy(colour), torch.from_numpy(kind)
+
+
+@pytest.mark.parametrize("variant", ["cookie", "special-pair", "colour0"])
+@pytest.mark.parametrize("R,C", [(5, 5), (10, 10), (6, 32), (32, 6), (5, 33), (34, 6), (9, 7),
+                                 (36, 36)])
+def test_settled_mask_painted_stencils_match_plain(host_k3, R, C, variant):
+    """Every stencil's last cell as a cookie, special pairs and colour-0
+    runs, on rows and columns up to and across the 32-bit words, with and
+    without specials, on the library of the shape and of any shape."""
+    colour, kind = painted_stencils(R, C, 64, seed=R * C + len(variant), variant=variant)
+    normal = torch.ones_like(kind)
+    for any_special in (True, False):
+        cfg = _k3_cfg(R, C, 4, any_special)
+        want = effective_mask_settled(cfg, colour, kind)
+        for shape in {cuda_build.shape_of(R, C), None}:
+            assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind), want), (shape, any_special)
+        if variant == "cookie" and not any_special:  # the guards turned painted stencils off
+            assert int(want.sum()) < int(effective_mask_settled(cfg, colour, normal).sum())
+        elif variant == "colour0":
+            assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("R,C,K", EDGE_SHAPES)
+def test_settled_mask_painted_edges_match_plain(host_k3, R, C, K):
+    """K3 on painted runs of up to 32 cells touching the rows' and columns'
+    ends, with lasers and bombs in them, with and without specials, on the
+    library of the shape."""
+    colour, kind = painted_edges(R, C, 48, seed=R * C + 3, specials=True, longest=32)
+    for any_special in (True, False):
+        cfg = _k3_cfg(R, C, K, any_special)
+        got = _k3_run(host_k3(cuda_build.shape_of(R, C)), cfg, colour, kind)
+        assert torch.equal(got, effective_mask_settled(cfg, colour, kind)), any_special
+
+
+def test_settled_mask_one_board_and_refused_shape(host_k3):
+    """One board (the Gym adapter's batch) and thin boards of one row or
+    one column; a library of one shape refuses another."""
+    for R, C in ((10, 10), (1, 8), (8, 1), (2, 2)):
+        cfg = _k3_cfg(R, C, 3, True)
+        colour, kind = random_mask_boards(R, C, 3, 1 if (R, C) == (10, 10) else 16, seed=R + C)
+        for shape in {cuda_build.shape_of(R, C), None}:
+            assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind),
+                               effective_mask_settled(cfg, colour, kind))
+    other = torch.ones(1, 11, 10, dtype=torch.int32)
+    mask = torch.empty(1, 2 * 110 - 21, dtype=torch.bool)
+    assert host_k3((10, 10))(other.data_ptr(), other.data_ptr(), mask.data_ptr(), 1, 11, 10, 1) == -1
+
+
+H100_SMEM_OPTIN = 232448  # shared memory one block may opt in to on an H100, in bytes
+
+
+def test_settled_mask_size_check_takes_one_board(tmp_path_factory):
+    """The wrapper's size check holds one board's shared memory against the
+    block's limit (a block takes fewer boards where several overflow it):
+    on an H100 every board up to 150x150 runs, beyond K1's and K2's limits."""
+    lib = _host_build(tmp_path_factory, "mask_sp")
+    lib.tmt_settled_mask_sp_smem.restype = ctypes.c_longlong
+
+    def optin():
+        return H100_SMEM_OPTIN
+
+    card = types.SimpleNamespace(tmt_settled_mask_sp_smem=lib.tmt_settled_mask_sp_smem,
+                                 tmt_smem_optin=optin)
+    for R, C in ((10, 10), (36, 36), (75, 75), (80, 80), (100, 100), (150, 150)):
+        cuda_build.check_fits(card, "settled_mask_sp", R, C, "settled_mask_sp")
+    assert lib.tmt_settled_mask_sp_smem(10, 10) < 2048
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_build.check_fits(card, "settled_mask_sp", 160, 160, "settled_mask_sp")

@@ -9,9 +9,10 @@
 // shared memory, never in a thread's registers; board-wide scalars come
 // from the reductions, which every thread sees alike.
 //
-// Two executors on the card:
+// The executor on the card:
 //   Warps<kW> — kW warps per board, one block of 32 kW threads (cascade.cu,
-//           cascade_sp.cu; Warp = Warps<1>): thread t runs cells t,
+//           cascade_sp.cu; Warp = Warps<1>, also mask_sp.cu, whose blocks
+//           hold several boards, a warp each): thread t runs cells t,
 //           t + 32 kW, ...  With one warp a phase ends in __syncwarp() and
 //           the reductions are single warp operations (__ballot_sync,
 //           __reduce_or_sync, __reduce_max_sync, __reduce_add_sync), with
@@ -20,8 +21,6 @@
 //           phase ends at __syncthreads() and a reduction folds the warps'
 //           results through shared memory: fewer boards in flight, each
 //           sooner done.
-//   Block — one thread block per board (mask_sp.cu): thread t runs cells
-//           t, t + blockDim.x, ...; a phase ends at __syncthreads().
 //
 // A cell mask is a bit set over the n cells of a board in 32-bit words,
 // bit i of word i / 32 for cell i, with one zero word past the last: in
@@ -29,7 +28,7 @@
 // column-major order (j = c * R + r) a run along a column is.  `ballot`
 // builds one word per 32 cells with one warp vote.
 //
-// Compiled as plain C++ (TMT_HOST_BUILD), both executors run each phase as
+// Compiled as plain C++ (TMT_HOST_BUILD), the executor runs each phase as
 // a loop over the cells and the bit helpers use the compiler's builtins; the
 // CPU tests build the board programs that way with g++ and hold them
 // against the kernels' plain PyTorch versions.
@@ -375,17 +374,6 @@ struct Warps {
 };
 using Warp = Warps<1>;
 
-struct Block {
-  int tid;  // this thread
-
-  // f(i) for every i < m, then a barrier
-  template <class F>
-  TMT_DEV void each_of(int m, F f) const {
-    for (int i = tid; i < m; i += blockDim.x) f(i);
-    __syncthreads();
-  }
-};
-
 #else  // host build: the same phases as loops over the cells
 
 template <int kW>
@@ -455,13 +443,6 @@ struct Warps {
   int lanes_max(int v) const { return v; }
 };
 using Warp = Warps<1>;
-
-struct Block {
-  template <class F>
-  void each_of(int m, F f) const {
-    for (int i = 0; i < m; ++i) f(i);
-  }
-};
 
 #endif
 

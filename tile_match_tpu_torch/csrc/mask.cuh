@@ -1,7 +1,8 @@
 // The settled effective-action mask of one action: exact is_move_effective
 // semantics (`board.py:735-787` of the original game) on a board with no
-// >= 3 run.  Shared by the cascade kernel (K1, all-normal boards) and the
-// settled-mask kernel (K3, boards with specials).
+// >= 3 run, one action at a time: the epilogue of the cascade kernel (K1,
+// all-normal boards).  The settled-mask kernel (K3, mask_sp.cu) computes
+// the same function for 32 actions at once from cell bit masks.
 //
 // A post-swap run must pass through a swapped cell: per swapped cell the 3
 // perpendicular stencils and the 1 parallel stencil pointing away from the

@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>[-RxC]-<hash>.so`` — the hash is
 of the source, of every ``csrc/*.cuh`` header it includes (directly or
 through another header) and of the flags, so an edited source or shared
-header is rebuilt — and is loaded with ``ctypes``.  The cascades (K1, K2)
-take their board shape at compile time: a library is built for each board
-shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``), and
-one without a shape serves every larger board (``shape_of``).
+header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1, K2,
+K3) take their board shape at compile time: a library is built for each
+board shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``),
+and one without a shape serves every larger board (``shape_of``).
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU-only test machines import every
 module but never build.
@@ -67,7 +67,7 @@ def sources(name: str) -> list[Path]:
 
 
 def shape_of(R: int, C: int):
-    """The board shape the cascades' library for an R x C board is built
+    """The board shape the kernels' library for an R x C board is built
     for: (R, C) when both are at most 32, else None (the library whose
     geometry is read at run time)."""
     return (R, C) if R <= 32 and C <= 32 else None

@@ -16,8 +16,10 @@ with specials, after the combination branch, ``fused_specials_cascade`` —
 K2 (``ops.cascade_sp.cascade_sp_chunk``) takes every board's simple trips,
 the full machinery (detect, classify, resolve, gravity, refill:
 ``specials_cascade_trip_grid``) the others — and the settled mask is K3
-(``ops.mask_sp.settled_mask_sp``).  On CUDA tensors these are the CUDA
-kernels, on CPU tensors their plain versions.  Every special set runs;
+(``ops.mask_sp.settled_mask_sp``).  Every other settled mask — of a fresh
+board, of a shuffled one, of a step called without one — is K3 too, with
+specials or without.  On CUDA tensors these are the CUDA kernels, on CPU
+tensors their plain versions.  Every special set runs;
 without the bomb K2 takes its no-bomb case table.
 """
 
@@ -35,7 +37,6 @@ from .ops.cascade import fused_cascade
 from .ops.cascade_sp import REASON_MULTI, cascade_sp_chunk
 from .ops.classify import process_colour_lines
 from .ops.combination import combination_match, is_combination
-from .ops.effective import effective_mask_settled
 from .ops.lines import get_colour_lines, has_any_line, run_member_mask
 from .ops.mask_sp import settled_mask_sp
 from .ops.resolve import resolve_colour_matches
@@ -94,7 +95,7 @@ def make_playable(
     if skip is not None:
         tot = torch.where(skip, cap, tot)
     colour, key, has_lines, tot = _clear_lines(cfg, colour, key, init_has_lines, tot)
-    mask = effective_mask_settled(cfg, colour, kind) if mask0 is None else mask0
+    mask = settled_mask_sp(cfg, colour, kind) if mask0 is None else mask0
     shuffled = torch.zeros(B, dtype=torch.bool, device=colour.device)
     while True:
         go = ((~mask.any(-1)) | has_lines) & (tot < cap)
@@ -110,7 +111,7 @@ def make_playable(
         colour, key, has_lines, tot = _clear_lines(
             cfg, colour, key, has_lines, tot + go.to(torch.int32)
         )
-        mask = torch.where(go[:, None], effective_mask_settled(cfg, colour, kind), mask)
+        mask = torch.where(go[:, None], settled_mask_sp(cfg, colour, kind), mask)
         shuffled = shuffled | go
     gave_up = (~mask.any(-1)) | has_lines
     mask = mask & ~gave_up[:, None]
@@ -364,7 +365,7 @@ def step(
     c1_tab, c2_tab = _action_coords(cfg, state.colour.device)
     a = action.long()
     mask_before = (
-        effective_mask_settled(cfg, state.colour, state.kind)
+        settled_mask_sp(cfg, state.colour.contiguous(), state.kind.contiguous())
         if eff_mask is None
         else eff_mask
     )

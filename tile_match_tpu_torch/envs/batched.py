@@ -2,9 +2,9 @@
 ``tile_match_tpu.envs.batched``).
 
 A batch of boards stepped together.  Every tensor lives on the device the
-caller chose: on a CUDA device the step's kernels (the cascade, and with
-specials the settled mask) are the CUDA kernels, on the CPU their plain
-PyTorch versions, through the same code.
+caller chose (by default the card): on a CUDA device the step's kernels
+(the cascade and the settled mask) are the CUDA kernels, on the CPU their
+plain PyTorch versions, through the same code.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import torch
 from .. import random as trandom
 from ..config import EnvConfig
 from ..engine import generate_board, reset
-from ..ops.effective import effective_mask_settled
 from ..ops.mask_sp import settled_mask_sp
+from ..parity import resolve_device
 from ..state import EnvState, StepInfo
 from .fused import batched_step_fused
 
@@ -62,8 +62,7 @@ def batched_step(
     recomputing the current mask.
     """
     if eff_mask is None:
-        mask_fn = settled_mask_sp if cfg.any_special else effective_mask_settled
-        eff_mask = mask_fn(cfg, states.colour, states.kind)
+        eff_mask = settled_mask_sp(cfg, states.colour.contiguous(), states.kind.contiguous())
     next_states, rewards, dones, infos = batched_step_fused(
         cfg, states, actions, eff_mask, compute_post_mask=not auto_reset
     )
@@ -134,14 +133,15 @@ def rollout(
 
 
 class BatchedTileMatchEnv:
-    """Object facade over the functional batched API on one device."""
+    """Object facade over the functional batched API on one device:
+    ``device=None`` means the card, and raises when there is none."""
 
     def __init__(
-        self, cfg: EnvConfig, batch_size: int, device, auto_reset: bool = True
+        self, cfg: EnvConfig, batch_size: int, device=None, auto_reset: bool = True
     ):
         self.cfg = cfg
         self.batch_size = batch_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.auto_reset = auto_reset
 
     def reset(self, key) -> Tuple[EnvState, TimeStep]:

@@ -1,10 +1,13 @@
-"""The settled effective-action mask of boards with specials: its CUDA
-kernel's wrapper (counterpart of ``settled_mask_sp`` in
+"""The settled effective-action mask: its CUDA kernel's wrapper
+(counterpart of ``settled_mask_sp`` in
 ``tile_match_tpu.ops.pallas_cascade``).  The plain version is
 ``ops.effective.effective_mask_settled``.
 
-``settled_mask_sp`` launches the CUDA kernel (``csrc/mask_sp.cu``) on CUDA
-tensors and runs ``effective_mask_settled`` on CPU tensors.
+``settled_mask_sp`` serves boards with specials and without (the config's
+``any_special`` turns the special-pair and cookie terms on): every settled
+mask of the engine and the batched env goes through it.  It launches the
+CUDA kernel (``csrc/mask_sp.cu``, one library a board shape of at most 32
+by 32) on CUDA tensors and runs ``effective_mask_settled`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ launches = 0
 def _kernel(R: int, C: int, device: int):
     """The launch function for R x C boards on card ``device``, after the
     fit check: both once per shape and card."""
-    lib = cuda_build.load("mask_sp")
+    lib = cuda_build.load("mask_sp", cuda_build.shape_of(R, C))
     cuda_build.check_fits(lib, "settled_mask_sp", R, C, "settled_mask_sp")
     fn = lib.tmt_settled_mask_sp
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -35,8 +38,9 @@ def _kernel(R: int, C: int, device: int):
 
 
 def settled_mask_sp(cfg: EnvConfig, colour: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
-    """bool[B, A]: ``effective_mask_settled`` of boards with specials, as
-    one CUDA kernel launch on a CUDA device."""
+    """bool[B, A]: ``effective_mask_settled`` of settled boards, with or
+    without specials, as one CUDA kernel launch on a CUDA device; on CPU
+    tensors, ``effective_mask_settled`` itself."""
     if colour.device.type == "cpu":
         return effective_mask_settled(cfg, colour, kind)
     if colour.device.type != "cuda":

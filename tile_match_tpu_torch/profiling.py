@@ -9,8 +9,9 @@ warm-up steps through ``BatchedTileMatchEnv`` under a random effective
 policy, then ``--steps`` steps under ``torch.profiler`` (no auto-reset falls
 in the window).  Prints, for the window: wall time per step, device busy
 time and share (the union of kernel intervals on the card), kernel launches
-per step, device time of the port's CUDA kernels against all other device
-work, and the ten kernels with the most device time.  Then ``--steps`` more
+per step and those of each of the port's kernels (their wrappers' counts),
+device time of the port's CUDA kernels against all other device work, and
+the ten kernels with the most device time.  Then ``--steps`` more
 steps without the profiler, with a host clock (after a device
 synchronisation) around the step's parts — the combination branch, the
 kernel launches, the full machinery trips and their detection,
@@ -70,6 +71,7 @@ def main() -> int:
     from . import random as trandom
     from .config import EnvConfig
     from .envs.batched import BatchedTileMatchEnv
+    from .ops import cascade, cascade_sp, mask_sp
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -100,6 +102,10 @@ def main() -> int:
     for _ in range(4):
         one_step()
     torch.cuda.synchronize()
+    wrappers = {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp,
+                "settled_mask_sp": mask_sp}
+    for m in wrappers.values():
+        m.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -120,7 +126,8 @@ def main() -> int:
     print(f"config {args.config} B={args.batch}, {n} profiled steps")
     print(f"wall {wall_ms / n:.3f} ms/step with the profiler on")
     print(f"device busy {busy_ms / n:.3f} ms/step, {100 * busy_ms / wall_ms:.1f}% of wall")
-    print(f"kernel launches {launches / n:.1f}/step")
+    print(f"kernel launches {launches / n:.1f}/step; of the port's kernels: "
+          f"{', '.join(f'{k} {m.launches / n:.2f}' for k, m in wrappers.items())}")
     print(f"device time: port kernels {port_us / 1e3 / n:.3f} ms/step, "
           f"other device work {other_us / 1e3 / n:.3f} ms/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:

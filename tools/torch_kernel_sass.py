@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Count the SASS opcodes of each kernel instance in the port's cascade
+"""Count the SASS opcodes of each kernel instance in the port's kernel
 libraries, for the port package of one or more checkouts.
 
     python tools/torch_kernel_sass.py ROOT [ROOT ...]
 
 For each ROOT (the root of a checkout whose ``tile_match_tpu_torch`` is
-imported and built), builds K1 (``csrc/cascade.cu``) and K2
-(``csrc/cascade_sp.cu``) for 10x10 boards, disassembles them with
-``cuobjdump -sass`` (beside ``nvcc``) and prints, for every kernel
-instance, its instruction count and the counts of a few opcodes: shared
-(``LDS``/``STS``), generic (``LD``/``ST``) and local (``LDL``/``STL``)
-memory instructions among them.  A pointer whose shared address space the
+imported and built), builds K1 (``csrc/cascade.cu``), K2
+(``csrc/cascade_sp.cu``) and K3 (``csrc/mask_sp.cu``) for 10x10 boards,
+disassembles them with ``cuobjdump -sass`` (beside ``nvcc``) and prints,
+for every kernel instance, its instruction count and the counts of a few
+opcodes: shared (``LDS``/``STS``), generic (``LD``/``ST``) and local
+(``LDL``/``STL``) memory instructions among them.  A pointer whose shared address space the
 compiler has lost turns its shared loads into generic ones.  Needs a CUDA
 toolkit; imports no JAX.
 """
@@ -53,7 +53,7 @@ def main() -> int:
         from tile_match_tpu_torch import cuda_build
 
         cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-        for src in ("cascade", "cascade_sp"):
+        for src in ("cascade", "cascade_sp", "mask_sp"):
             lib = cuda_build.build(src, (10, 10))
             sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                                   check=True).stdout

@@ -22,7 +22,15 @@ and the mean ms per launch of
   the Gym adapter's threefry engine launches it), and its longest board
   alone; K2 one sprinkled board at a time;
 - K1 and K2 (with the bomb) at shapes outside ``bench.py``'s configs:
-  8x8x4 B=16384 and 36x36x6 B=256.
+  8x8x4 B=16384 and 36x36x6 B=256;
+- K3 on K2's output boards: 10x10x4 B=16384 also with the L2 cache flushed
+  before each launch, each launch timed alone (``K3_cold_ms``: behind a
+  write of 64 MiB, more than the card's 50 MB L2, which leaves the L2
+  dirty; ``K3_cold_read_ms``: behind a read of 64 MiB, which leaves it
+  clean; ``*_each_ms`` every launch's time), one board at a time (16
+  in turn), config 4's 20x20x6 at its batch of 8192 and 36x36x6 B=256; and
+  without specials on K1's output boards at 10x10x4 B=16384 (config 1's
+  mask).
 
 Times are CUDA events around ``--reps`` launches after a warm-up, queued
 behind a sleep on the card so that the launches run back to back and a
@@ -43,7 +51,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
+FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
 def main() -> int:
@@ -74,17 +82,25 @@ def main() -> int:
     digest = hashlib.sha1()
 
     def queued_ms(fn):
+        return chip_smoke._queued_ms(fn, args.reps)
+
+    flush = torch.zeros(FLUSH_BYTES // 8, dtype=torch.int64, device=dev)
+
+    def cold_ms(fn, evict):
+        """The ms of each of fn's launches, timed alone after ``evict``
+        has moved more bytes than the L2 holds."""
         fn()  # warm-up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(args.reps)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(args.reps):
+        torch.cuda._sleep(chip_smoke.SLEEP_CYCLES)
+        for start, end in pairs:
+            evict()
+            start.record()
             fn()
-        end.record()
+            end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.reps
+        return [start.elapsed_time(end) for start, end in pairs]
 
     def timed(fn):
         out = fn()
@@ -131,7 +147,23 @@ def main() -> int:
     nb = chip_smoke.sprinkled_inputs(10, 10, 4, B, seed=10 * 100 + B + 1, device=dev,
                                      kinds=[2, 3, -1])
     _, rec["K2_nobomb_ms"] = timed(lambda: cascade_sp.cascade_sp_chunk(cfg_nb, *nb, limit=64))
-    _, rec["K3_ms"] = timed(lambda: (mask_sp.settled_mask_sp(cfg3, out[0], out[1]),))
+    k3 = lambda: (mask_sp.settled_mask_sp(cfg3, out[0], out[1]),)  # noqa: E731
+    _, rec["K3_ms"] = timed(k3)
+    for name, evict in (("K3_cold", flush.zero_), ("K3_cold_read", flush.sum)):
+        rec[f"{name}_each_ms"] = each = cold_ms(k3, evict)
+        rec[f"{name}_ms"] = sum(each) / len(each)
+    singles = [(cfg3, out[0][b:b + 1].clone(), out[1][b:b + 1].clone()) for b in range(16)]
+    rec["K3_b1_ms"], rec["K3_b1_called_ms"] = one_at_a_time(
+        lambda *a: (mask_sp.settled_mask_sp(*a),), singles)
+    cfg1_kind = torch.ones_like(out1[0])
+    _, rec["K3_nospecials_ms"] = timed(
+        lambda: (mask_sp.settled_mask_sp(cfg1, out1[0], cfg1_kind),))
+    for R, C, K, b in ((20, 20, 6, 8192), (36, 36, 6, 256)):
+        cfg_sp = chip_smoke._config(R, C, K, 30, chip_smoke.ALL_SPECIALS)
+        sp = chip_smoke.sprinkled_inputs(R, C, K, b, seed=R * C + 2, device=dev)
+        settled = cascade_sp.cascade_sp_chunk(cfg_sp, *sp, limit=64)
+        _, rec[f"K3_{R}x{C}x{K}_b{b}_ms"] = timed(
+            lambda: (mask_sp.settled_mask_sp(cfg_sp, settled[0], settled[1]),))
 
     # config 1's main path: K1's input in the second step of the batched env
     captured = []

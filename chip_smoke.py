@@ -45,8 +45,37 @@ Phases, one line each or more; any failure exits non-zero:
      torch_port_gym_episodes.json: threefry and numpy modes; all, no,
      laser-only and cookie-only specials) through ThreefryDriver and
      ParityEngine, bit for bit, checks that the threefry episodes launched
-     the kernels, and prints ms per step.
-The line before the last is the kernels' JSON record; the last line is
+     the kernels, and prints ms per step;
+  9-15 run the training path, the plain settled mask still refused:
+  9. replays the recorded JAX draws (tests/data/torch_port_fixture_dqn.npz):
+     ``uniform`` over [16384] and the [16384, 180] uniforms of
+     ``categorical`` bit for bit, its argmax on every board;
+  10. trains the DQN on config 1 at full width (batch 256, hidden 512):
+     40 steps at epsilon 1 from numpy-seeded weights against the recorded
+     JAX run — actions, rewards, dones and the final env state bit for
+     bit, across the auto-reset; loss and |TD| every step; after steps 1,
+     5 and 40 Adam's first moment and the weights' change from the seeded
+     start, leaf by leaf by relative norm (step 1's moment, the gradient
+     of the same weights and batch, within LEARNER_GRAD_REL) — then 60
+     steps of the default schedule, timed: ms a step, the env step and the
+     learner apart (CUDA events), host syncs a step, reward mean; K1 on
+     every step (a train step passes the env the previous mask and K1
+     returns the next, as the reference's ``batched_step`` does with
+     ``eff_mask``: tile_match_tpu/envs/batched.py:91), K3 where boards
+     regenerate (the auto-reset), the loss finite;
+  11. holds the Q-network on numpy-seeded weights to the recorded flax Q;
+  12. trains the DQN on config 3 for 8 steps: K2 and K3 on every step;
+  13. runs DQN with replay (60 steps, updates from step 20 on, none
+     before), QR-DQN (30 steps, 75 quantiles), ``run_random`` in both
+     modes and ``train_dense`` at 3x3x2x5;
+  14. saves the DQN state, runs 8 steps, restores it and runs the same 8:
+     env states, parameters and Adam moments equal (torch.equal);
+  15. runs ``entry()``'s forward (every special, B=64) on the seeded
+     weights against the recorded JAX entry: K2 and K3 launch.
+The line before the last is the kernels' JSON record (``launches``: over
+the batched drives of phases 5-7, the main paths; the training path's
+launches stand on its phase lines, phases 10 and 12 a step); the last
+line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -67,6 +96,7 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg1.npz")
 FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
 FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
 FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
+FIXTURE_DQN = os.path.join(ROOT, "tests", "data", "torch_port_fixture_dqn.npz")
 GOLDEN = os.path.join(ROOT, "tests", "golden_episodes.json")
 # name -> (module under tile_match_tpu_torch.ops, csrc source, TPU kernel replaced)
 KERNELS = {
@@ -104,6 +134,17 @@ MAIN_BATCH = 16384
 MAIN_STEPS = 32
 SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
 SEED = 0
+# phase 10's learner against the recorded JAX one, leaf by leaf by relative
+# norm on the recorded entries.  After step 1 Adam's first moment is 0.1 g
+# on the same weights and batch: the backward pass alone, whose bfloat16
+# hidden layers the two packages round at different places (under 0.05
+# for the port on the CPU).  Later moments, and the weights' changes, hold
+# two runs whose weights drift apart by rounding, and Adam's first step
+# moves each entry by lr sign(g), which flips where g lies within rounding
+# of 0 (dense1's change after step 1: 0.33 on the CPU).  A gradient of the
+# wrong sign reads 2 on either, a zero one 1.
+LEARNER_GRAD_REL = 0.1
+LEARNER_DRIFT_REL = 0.5
 # H100 SXM peaks (published datasheet): HBM bytes/s, and the
 # non-tensor float32 rate, used as the ceiling for the integer work
 PEAK_BYTES = 3.35e12
@@ -142,7 +183,7 @@ def replay_fixture(device, path: str = FIXTURE) -> int:
     d = np.load(path)
     R, C, K, moves = (int(v) for v in d["config"])
     specials = d["specials"] if "specials" in d.files else (0, 0, 0, 0)
-    env = BatchedTileMatchEnv(_config(R, C, K, moves, specials), d["colour"].shape[1], device)
+    env = BatchedTileMatchEnv(_config(R, C, K, moves, specials), d["colour"].shape[1], device=device)
 
     def compare(t, states, ts):
         got = state_to_numpy(states)
@@ -547,7 +588,7 @@ def drive(cfg, device, smi, tag, required):
 
     modules = {name: importlib.import_module(f"tile_match_tpu_torch.ops.{mod}")
                for name, (mod, _, _) in KERNELS.items()}
-    env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device)
+    env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     for m in modules.values():
@@ -647,6 +688,470 @@ def main_paths(device, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-15: the training path
+# ---------------------------------------------------------------------------
+def _fixture_tool():
+    """The recorder's constants and numpy weights (imports no JAX)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from tools import make_torch_port_fixture
+
+    return make_torch_port_fixture
+
+
+def check_draws(device) -> dict:
+    """Phase 9: the recorded JAX draws on ``device``: ``uniform`` over
+    [16384] bit for bit, the categorical's [16384, 180] uniforms bit for
+    bit (64 rows in full, all by digest) and its argmax on every row.
+    Returns counts for the report."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+
+    f = _fixture_tool()
+    d = np.load(FIXTURE_DQN)
+    k_mask, k_cat, k_unif = trandom.split(trandom.PRNGKey(f.DRAW_SEED, device), 3)
+    mask = trandom.random_bits(k_mask, f.DRAW_SHAPE) % 5 == 0
+    mask[::97] = False
+    u = trandom.uniform(k_unif, f.DRAW_SHAPE[:1]).cpu().numpy()
+    check(np.array_equal(u.view(np.uint32), d["draw_uniform"].view(np.uint32)),
+          "draws: uniform differs from jax.random.uniform")
+    cu = trandom.uniform(k_cat, f.DRAW_SHAPE, minval=np.finfo(np.float32).tiny, maxval=1.0)
+    cu = cu.cpu().numpy()
+    bits = cu.view(np.uint32).astype(np.uint64)
+    digest = [int(bits.sum()) % (1 << 63), int(np.bitwise_xor.reduce(bits.reshape(-1)))]
+    check(np.array_equal(cu[: f.DRAW_ROWS].view(np.uint32),
+                         d["draw_cat_uniform_rows"].view(np.uint32))
+          and digest == d["draw_cat_uniform_digest"].tolist(),
+          "draws: the categorical's uniforms differ from jax.random.uniform")
+    cat = trandom.categorical(k_cat, torch.where(mask, 0.0, -torch.inf), axis=-1).cpu().numpy()
+    flips = np.flatnonzero(cat != d["draw_categorical"])
+    check(flips.size == 0, f"draws: categorical argmax differs from jax.random.categorical on "
+                           f"boards {flips[:20].tolist()}")
+    return {"uniforms": int(cu.size + u.size), "boards": int(cat.size),
+            "empty_rows": int((~mask.any(-1)).sum())}
+
+
+@contextlib.contextmanager
+def env_step_probe(module, device):
+    """Within: ``module.batched_step`` (an agent's env step) also records
+    its actions, rewards and dones, and on the card a CUDA event on each
+    side of it.  Yields the list of records, one a call."""
+    import torch
+
+    real = module.batched_step
+    records = []
+
+    def probed(cfg, states, actions, **kw):
+        rec = {"actions": actions}
+        if device.type == "cuda":
+            rec["start"] = torch.cuda.Event(enable_timing=True)
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["start"].record()
+        states, ts = real(cfg, states, actions, **kw)
+        if device.type == "cuda":
+            rec["end"].record()
+        rec.update(rewards=ts.reward, dones=ts.done)
+        records.append(rec)
+        return states, ts
+
+    module.batched_step = probed
+    try:
+        yield records
+    finally:
+        module.batched_step = real
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Within: every host synchronisation with the card is recorded (torch's
+    sync debug mode).  Yields the list of warnings; count those that name a
+    synchronizing operation."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _syncs(caught) -> int:
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _kernel_modules():
+    import importlib
+
+    return {name: importlib.import_module(f"tile_match_tpu_torch.ops.{mod}")
+            for name, (mod, _, _) in KERNELS.items()}
+
+
+def _launch_counts():
+    return {name: m.launches for name, m in _kernel_modules().items()}
+
+
+def _zero_launch_counts():
+    """Set every kernel's count to 0: a path's run starts from here."""
+    for m in _kernel_modules().values():
+        m.launches = 0
+
+
+def _dqn_cfg(specials=(0, 0, 0, 0)):
+    return _config(10, 10, 4, 30, specials)
+
+
+def _rel_gap(got, want) -> float:
+    """|got - want| / |want| in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def replay_dqn(device, steps=None) -> dict:
+    """Phase 10a: 40 ``make_dqn`` train steps on config 1 at batch 256,
+    hidden 512, epsilon held at 1, keyed as the JAX ``train`` loop, from the
+    seeded weights, against the recorded JAX run: every step's actions,
+    rewards and dones, and the final env state and mask, bit for bit; every
+    step's loss and mean |TD| within rtol 5e-2; after the recorded steps
+    (1, 5 and 40), leaf by leaf on the recorded entries, Adam's first moment
+    within a relative norm of LEARNER_GRAD_REL after step 1 (the gradient
+    of the same weights and batch) and LEARNER_DRIFT_REL later, and the
+    weights' change from the seeded start within LEARNER_DRIFT_REL
+    (``steps``: the first few only, without the final state).  Returns the
+    launches of each kernel a step, the final state and the largest learner
+    gaps."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.interop import state_to_numpy
+    from tile_match_tpu_torch.models import dqn
+
+    device = torch.device(device)
+    f = _fixture_tool()
+    d = np.load(FIXTURE_DQN)
+    cfg = _dqn_cfg()
+    init_fn, train_step, _ = dqn.make_dqn(cfg, batch_size=f.DQN_BATCH, hidden=f.DQN_HIDDEN,
+                                          eps_start=1.0, eps_end=1.0, device=device)
+    key, k_init = trandom.split(trandom.PRNGKey(f.DQN_SEED, device))
+    state = init_fn(k_init)
+    tree = f.seeded_qnet_params(dqn.input_size(cfg), f.DQN_HIDDEN, cfg.num_actions, f.QNET_SEED)
+    state.params.load_state_dict(dqn.params_from_flax(tree))
+    dqn.sync_target(state.target_params, state.params)
+    start = f.port_leaves(tree)
+    per_step, losses, tds, learner = [], [], [], []
+    _zero_launch_counts()
+    with env_step_probe(dqn, device) as records:
+        for t in range(steps or f.DQN_STEPS):
+            key, k = trandom.split(key)
+            before = _launch_counts()
+            state, metrics = train_step(state, k)
+            after = _launch_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            losses.append(metrics["loss"])
+            tds.append(metrics["td_abs"])
+            rec = records[-1]
+            for name in ("actions", "rewards", "dones"):
+                got = rec[name].cpu().numpy()
+                check(np.array_equal(got, d[f"dqn_{name}"][t].astype(got.dtype)),
+                      f"DQN step {t}: {name} differ from the recorded JAX run")
+            if t + 1 in f.LEARNER_STEPS:
+                opt = state.opt_state
+                named = list(state.params.named_parameters())
+                mu = {n: opt.state[p]["exp_avg"].cpu().numpy() for n, p in named}
+                change = {n: p.detach().cpu().numpy() - start[n] for n, p in named}
+                learner.append((t + 1, f.learner_samples(mu), f.learner_samples(change)))
+    n = len(losses)
+    gaps = {"loss": 0.0, "grad": 0.0, "mu": 0.0, "change": 0.0}
+    for name in ("loss", "td_abs"):
+        got = torch.stack(losses if name == "loss" else tds).cpu().numpy()
+        want = d[f"dqn_{name}"][:n]
+        check(bool(np.isfinite(got).all()), f"DQN: {name} is not finite")
+        err = np.abs(got - want) / np.abs(want)
+        check(bool((err < 5e-2).all()), f"DQN: {name} differs from the recorded JAX run by "
+                                        f"rtol {err.max():.4f} (step {int(err.argmax())})")
+        gaps["loss"] = max(gaps["loss"], float(err.max()))
+    for i, (k, mu, change) in enumerate(learner):
+        for leaf in mu:
+            g_mu = _rel_gap(mu[leaf], d[f"dqn_mu_{leaf}"][i])
+            g_ch = _rel_gap(change[leaf], d[f"dqn_change_{leaf}"][i])
+            check(g_mu < (LEARNER_GRAD_REL if k == 1 else LEARNER_DRIFT_REL),
+                  f"DQN step {k}: Adam's first moment of {leaf} differs from the recorded JAX "
+                  f"run by a relative norm of {g_mu:.4f}")
+            check(g_ch < LEARNER_DRIFT_REL, f"DQN step {k}: the change of {leaf} differs from "
+                                            f"the recorded JAX run by a relative norm of {g_ch:.4f}")
+            moment = "grad" if k == 1 else "mu"
+            gaps[moment], gaps["change"] = max(gaps[moment], g_mu), max(gaps["change"], g_ch)
+    if steps:
+        return {"launches": per_step, "state": state, "gaps": gaps}
+    got = state_to_numpy(state.env_states)
+    for name in ("colour", "kind", "timer", "key"):
+        check(np.array_equal(got[name], d[f"dqn_{name}"].astype(got[name].dtype)),
+              f"DQN: final env {name} differs from the recorded JAX run")
+    check(np.array_equal(state.eff_mask.cpu().numpy(), d["dqn_eff_mask"]),
+          "DQN: final effective-action mask differs from the recorded JAX run")
+    return {"launches": per_step, "state": state, "gaps": gaps}
+
+
+def check_qnet(device, state=None) -> float:
+    """Phase 11: the port's QNetwork under the seeded weights against the
+    recorded flax Q on the recorded final boards (rtol 2e-2, atol 2e-2:
+    bfloat16 hidden layers, rounded at other places).  Returns the largest
+    error."""
+    import torch
+
+    from tile_match_tpu_torch.interop import state_from_numpy
+    from tile_match_tpu_torch.models import dqn
+
+    f = _fixture_tool()
+    d = np.load(FIXTURE_DQN)
+    cfg = _dqn_cfg()
+    n = f.Q_BOARDS
+    states = state_from_numpy(d["dqn_colour"][:n], d["dqn_kind"][:n], d["dqn_timer"][:n],
+                              d["dqn_key"][:n], device)
+    net = dqn.QNetwork(cfg.num_actions, f.DQN_HIDDEN, in_features=dqn.input_size(cfg),
+                       device=device)
+    tree = f.seeded_qnet_params(dqn.input_size(cfg), f.DQN_HIDDEN, cfg.num_actions, f.QNET_SEED)
+    net.load_state_dict(dqn.params_from_flax(tree))
+    with torch.no_grad():
+        q = net(*dqn._encode(cfg, states)).cpu()
+    want = torch.from_numpy(d["flax_q"])
+    err = float((q - want).abs().max())
+    check(torch.allclose(q, want, rtol=2e-2, atol=2e-2),
+          f"QNetwork differs from the recorded flax Q by {err}")
+    return err
+
+
+def check_entry(device) -> dict:
+    """Phase 15: ``entry()``'s forward under the seeded weights against the
+    recorded ``__graft_entry__.entry`` forward: the reset boards, rewards
+    and next boards bit for bit, Q within rtol 2e-2, atol 2e-2.  Returns
+    each kernel's launches in the forward."""
+    import torch
+
+    from tile_match_tpu_torch.entry import entry
+    from tile_match_tpu_torch.interop import state_to_numpy
+    from tile_match_tpu_torch.models import dqn
+
+    device = torch.device(device)
+    f = _fixture_tool()
+    d = np.load(FIXTURE_DQN)
+    forward, (net, states, actions) = entry(device)
+    head = net.head.weight.shape[0]
+    tree = f.seeded_qnet_params(net.dense1.weight.shape[1], f.DQN_HIDDEN, head, f.QNET_SEED)
+    net.load_state_dict(dqn.params_from_flax(tree))
+    before = _launch_counts()
+    q, reward, next_states = forward(net, states, actions)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    after = _launch_counts()
+    for prefix, st in (("entry_reset", states), ("entry_next", next_states)):
+        got = state_to_numpy(st)
+        for name in ("colour", "kind", "timer", "key"):
+            check(np.array_equal(got[name], d[f"{prefix}_{name}"].astype(got[name].dtype)),
+                  f"entry: {prefix} {name} differs from the recorded JAX entry")
+    check(np.array_equal(reward.cpu().numpy(), d["entry_reward"]),
+          "entry: rewards differ from the recorded JAX entry")
+    want = torch.from_numpy(d["entry_q"])
+    check(tuple(q.shape) == tuple(want.shape) and torch.allclose(q.cpu(), want, rtol=2e-2, atol=2e-2),
+          "entry: Q differs from the recorded flax Q")
+    return {n: after[n] - before[n] for n in after}
+
+
+def _timed_steps(train_step, state, key, steps, device, required, tag, module):
+    """Run ``steps`` train steps; every kernel in ``required`` must launch on
+    each.  Returns (state, report): host ms a step, the env step's and the
+    learner's ms by CUDA events, host syncs a step, reward and loss means,
+    and each kernel's launches over the run."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+
+    host, env, learner, syncs, rewards, losses = [], [], [], [], [], []
+    _zero_launch_counts()
+    with env_step_probe(module, device) as records:
+        for t in range(steps):
+            key, k = trandom.split(key)
+            before = _launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_syncs() as caught:
+                start.record()
+                state, metrics = train_step(state, k)
+                end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(_syncs(caught))
+            after = _launch_counts()
+            for n in required:
+                check(after[n] > before[n], f"{tag} step {t}: kernel {n} was not launched")
+            rec = records[-1]
+            total = start.elapsed_time(end)
+            env.append(rec["start"].elapsed_time(rec["end"]))
+            learner.append(total - env[-1])
+            rewards.append(metrics["reward_mean"])
+            losses.append(metrics["loss"])
+    losses = torch.stack(losses)
+    check(bool(torch.isfinite(losses).all()), f"{tag}: a loss is not finite")
+    report = {
+        "host_ms": sum(host) / steps, "median_ms": sorted(host)[steps // 2],
+        "env_ms": sum(env) / steps, "learner_ms": sum(learner) / steps,
+        "syncs": sum(syncs) / steps, "reward_mean": float(torch.stack(rewards).mean()),
+        "loss_last": float(losses[-1]), "launches": _launch_counts(),
+    }
+    return state, key, report
+
+
+def _print_report(tag, steps, r, smi):
+    print(f"{tag}: {steps} steps, {r['host_ms']:.3f} ms a step (median {r['median_ms']:.3f}): "
+          f"env step {r['env_ms']:.3f} ms, learner {r['learner_ms']:.3f} ms (CUDA events); "
+          f"{r['syncs']:.2f} host syncs a step; launches a step "
+          f"{', '.join(f'{n} {c / steps:.3f}' for n, c in r['launches'].items())}; "
+          f"reward mean {r['reward_mean']:.6f}, last loss {r['loss_last']:.6f} ({smi})")
+
+
+def training_path(device, smi) -> None:
+    """Phases 9-15, each path's launches on its own phase lines."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.checkpoint import restore_pytree, save_pytree
+    from tile_match_tpu_torch.models import dqn, dqn_replay, q_learning, qrdqn, random_agent
+
+    f = _fixture_tool()
+    # 9. the draws
+    n = check_draws(device)
+    print(f"phase 9 ok: {n['uniforms']} uniforms bit for bit and {n['boards']} categorical draws "
+          f"({n['empty_rows']} boards with no effective action) equal to the recorded JAX draws")
+
+    # 10. DQN on config 1 at full width
+    t0 = time.perf_counter()
+    run = replay_dqn(device)
+    # a train step hands the env the previous step's mask and K1 returns the
+    # next one, so K3 runs where boards are regenerated: the auto-reset step
+    cfg1 = _dqn_cfg()
+    for t, step in enumerate(run["launches"]):
+        check(step["fused_cascade"] > 0, f"phase 10 DQN step {t}: K1 was not launched")
+    reset_step = run["launches"][cfg1.num_moves - 1]
+    check(reset_step["settled_mask_sp"] > 0, "phase 10 DQN: K3 did not run at the auto-reset")
+    gaps = run["gaps"]
+    print(f"phase 10 ok: {f.DQN_STEPS} DQN train steps (config 1, B={f.DQN_BATCH}, hidden "
+          f"{f.DQN_HIDDEN}, epsilon 1, seeded weights) equal the recorded JAX run bit for bit in "
+          f"actions, rewards, dones and the final env state, auto-reset crossed; learner: loss "
+          f"and |TD| within rtol {gaps['loss']:.4f}, step 1's gradient (Adam's first moment) "
+          f"within a relative norm of {gaps['grad']:.4f} (limit {LEARNER_GRAD_REL}), later "
+          f"moments {gaps['mu']:.4f} and weight changes {gaps['change']:.4f} (limit "
+          f"{LEARNER_DRIFT_REL}); K1 on every step ({sum(s['fused_cascade'] for s in run['launches'])}"
+          f" launches), K3 {sum(s['settled_mask_sp'] for s in run['launches'])} launches "
+          f"(auto-reset step {reset_step['settled_mask_sp']}) ({time.perf_counter() - t0:.1f} s)")
+    init_fn, train_step, _ = dqn.make_dqn(cfg1, batch_size=256, hidden=512, device=device)
+    key, k_init = trandom.split(trandom.PRNGKey(SEED, device))
+    state = init_fn(k_init)
+    steps = 60
+    state, key, r = _timed_steps(train_step, state, key, steps, device, ("fused_cascade",),
+                                 "phase 10 DQN", dqn)
+    check(r["launches"]["settled_mask_sp"] > 0, "phase 10 DQN: K3 did not run at the auto-resets")
+    _print_report("phase 10 ok: DQN config 1 B=256 hidden 512, default epsilon", steps, r, smi)
+
+    # 11. the Q-network against flax
+    err = check_qnet(device)
+    print(f"phase 11 ok: QNetwork on seeded weights within rtol 2e-2, atol 2e-2 of the "
+          f"recorded flax Q (max abs err {err:.6f})")
+
+    # 12. DQN on config 3
+    cfg3 = _dqn_cfg(ALL_SPECIALS)
+    init3, step3, _ = dqn.make_dqn(cfg3, batch_size=256, hidden=512, device=device)
+    key3, k_init = trandom.split(trandom.PRNGKey(SEED, device))
+    state3 = init3(k_init)
+    state3, key3, r = _timed_steps(step3, state3, key3, 8, device,
+                                   ("cascade_sp_chunk", "settled_mask_sp"), "phase 12 DQN", dqn)
+    _print_report("phase 12 ok: DQN config 3 B=256 hidden 512", 8, r, smi)
+
+    # 13. the other agents
+    learning_starts = 20 * 128
+    init_r, step_r, _ = dqn_replay.make_dqn_replay(cfg1, learning_starts=learning_starts,
+                                                   device=device)
+    key_r, k_init = trandom.split(trandom.PRNGKey(SEED, device))
+    state_r = init_r(k_init)
+    w0 = state_r.params.head.weight.detach().clone()
+    state_r, key_r, r = _timed_steps(step_r, state_r, key_r, 19, device,
+                                     ("fused_cascade",), "phase 13 DQN-replay", dqn_replay)
+    check(torch.equal(state_r.params.head.weight, w0) and not state_r.opt_state.state,
+          "phase 13 DQN-replay: an update before learning_starts")
+    state_r, key_r, r2 = _timed_steps(step_r, state_r, key_r, 41, device,
+                                      ("fused_cascade",), "phase 13 DQN-replay", dqn_replay)
+    check(not torch.equal(state_r.params.head.weight, w0), "phase 13 DQN-replay: no update")
+    _print_report(f"phase 13: DQN with replay config 1 (env batch 128, train batch 256, capacity "
+                  f"50,000; learning_starts {learning_starts}), steps 20-60", 41, r2, smi)
+    init_q, step_q, _ = qrdqn.make_qrdqn(cfg1, device=device)
+    key_q, k_init = trandom.split(trandom.PRNGKey(SEED, device))
+    state_q, key_q, r = _timed_steps(step_q, init_q(k_init), key_q, 30, device,
+                                     ("fused_cascade",), "phase 13 QR-DQN", qrdqn)
+    _print_report("phase 13: QR-DQN config 1 B=256 hidden 512, 75 quantiles", 30, r, smi)
+    for effective in (False, True):
+        t0 = time.perf_counter()
+        ret, eff = random_agent.run_random(cfg1, SEED, num_episodes=256,
+                                           use_effective_actions=effective, device=device)
+        check(ret.shape == (256,) and np.isfinite(ret).all() and (eff > 0).all(),
+              f"phase 13 run_random(effective={effective}): bad returns or counts")
+        check(not effective or (ret > 0).all(), "phase 13 run_random: an effective episode scored 0")
+        print(f"phase 13: run_random config 1, effective actions {effective}: 256 episodes, mean "
+              f"return {ret.mean():.6f} ({time.perf_counter() - t0:.1f} s)")
+    from tile_match_tpu_torch.config import EnvConfig
+
+    qtable, _ = q_learning.train_dense(EnvConfig(3, 3, 2, 5), num_steps=50, batch_size=16,
+                                       device=device)
+    check(bool(torch.isfinite(qtable).all()) and bool(qtable.abs().sum() > 0),
+          "phase 13 train_dense: table not finite or empty")
+    print("phase 13 ok: DQN with replay, QR-DQN, run_random in both modes and train_dense "
+          "(3x3x2x5) ran; losses and tables finite; no update before learning_starts")
+
+    # 14. checkpoint: save mid-run, run 8 steps, restore, run the same 8
+    def eight(state, key):
+        for _ in range(8):
+            key, k = trandom.split(key)
+            state, _ = train_step(state, k)
+        opt = state.opt_state
+        moments = [opt.state[p][m].clone() for p in state.params.parameters()
+                   for m in ("exp_avg", "exp_avg_sq")]
+        params = [p.detach().clone() for p in state.params.parameters()]
+        return state, params, moments
+
+    ckpt_dir = os.path.join(ROOT, "tile_match_tpu_torch", "_build")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"chip_smoke_ckpt_{os.getpid()}.pt")
+    try:
+        save_pytree(path, state)
+        saved_key = key.clone()
+        a, a_params, a_moments = eight(state, key)
+        b = restore_pytree(path, state)
+        b, b_params, b_moments = eight(b, saved_key)
+    finally:
+        os.remove(path)
+    for name in ("colour", "kind", "timer", "key"):
+        check(torch.equal(getattr(a.env_states, name), getattr(b.env_states, name)),
+              f"phase 14: env {name} differs after the restored run")
+    check(all(torch.equal(x, y) for x, y in zip(a_params, b_params)),
+          "phase 14: parameters differ after the restored run")
+    check(all(torch.equal(x, y) for x, y in zip(a_moments, b_moments)),
+          "phase 14: Adam moments differ after the restored run")
+    print("phase 14 ok: a DQN state saved at step 60 and restored reran 8 steps equal in env "
+          "states, parameters and Adam moments (torch.equal)")
+
+    # 15. the entry: env step fused with the Q-network forward
+    counts = check_entry(device)
+    for name in ("cascade_sp_chunk", "settled_mask_sp"):
+        check(counts[name] > 0, f"phase 15: entry forward did not launch {name}")
+    print(f"phase 15 ok: entry() forward at B=64 (EnvConfig(10, 10, 4, 30): every special) on "
+          f"the seeded weights equals the recorded JAX entry: boards and rewards bit for bit, "
+          f"Q within rtol 2e-2, atol 2e-2; launches {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -697,6 +1202,10 @@ def main() -> int:
     with plain_mask_refused():
         launches = main_paths(device, smi)
     print("phases 4-8 ok: the plain settled mask ran on no CUDA tensor")
+
+    # 9-15. the training path
+    with plain_mask_refused():
+        training_path(device, smi)
 
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

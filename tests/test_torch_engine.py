@@ -132,9 +132,15 @@ def test_specials_and_debug_checks_are_not_ported():
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['jaxlib'] = None\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint'):\n"
+        "    sys.modules[name] = None\n"
         "import tile_match_tpu_torch, tile_match_tpu_torch.envs.batched\n"
+        "import tile_match_tpu_torch.models.replay, tile_match_tpu_torch.models.dqn\n"
+        "import tile_match_tpu_torch.models.dqn_replay, tile_match_tpu_torch.models.qrdqn\n"
+        "import tile_match_tpu_torch.models.random_agent, tile_match_tpu_torch.models.q_learning\n"
+        "import tile_match_tpu_torch.checkpoint, tile_match_tpu_torch.entry\n"
+        "import chip_smoke\n"
+        "chip_smoke._fixture_tool()\n"
         "import tile_match_tpu_torch.interop, tile_match_tpu_torch.cuda_build\n"
         "import tile_match_tpu_torch.parity, tile_match_tpu_torch.envs._threefry_driver\n"
         "import tile_match_tpu_torch.envs.gym_env, tile_match_tpu_torch.envs.spaces\n"
@@ -151,7 +157,10 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|tile_match_tpu(?!_torch))", re.M)
+    pattern = re.compile(
+        r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|flax\b|optax\b|orbax\b|tile_match_tpu(?!_torch))",
+        re.M,
+    )
     pkg = os.path.join(ROOT, "tile_match_tpu_torch")
     sources = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(pkg):

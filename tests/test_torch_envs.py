@@ -90,6 +90,38 @@ def test_rollout_matches_jax(idx, B, T):
     assert td.any()  # an auto-reset happened
 
 
+@pytest.mark.parametrize("idx,B,T", [(0, 130, 12), (1, 24, 32)])
+def test_default_rollout_matches_jax(idx, B, T):
+    """Without a policy both rollouts draw ``categorical`` over the masked
+    logits from the same keys: the same boards, rewards and dones."""
+    jc, tc = cfgs(idx)
+    jstates, jr, jd = jax.jit(lambda k: jbat.rollout(jc, k, B, T))(jax.random.PRNGKey(idx + 40))
+    tstates, tr, td = tbat.rollout(tc, trandom.PRNGKey(idx + 40, "cpu"), B, T)
+    assert_state(tstates, jstates, "final")
+    assert np.array_equal(tr.numpy(), np.asarray(jr))
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_batched_env_takes_the_reference_arguments():
+    """``BatchedTileMatchEnv(cfg, B, False)`` as in the reference: the
+    third argument is ``auto_reset``; done boards stay and keep no mask."""
+    jc, tc = cfgs(0)
+    jenv = jbat.BatchedTileMatchEnv(jc, 6, False)
+    tenv = tbat.BatchedTileMatchEnv(tc, 6, False, device="cpu")
+    assert tenv.auto_reset is False and tenv.device == torch.device("cpu")
+    jstates, jts = jenv.reset(jax.random.PRNGKey(3))
+    tstates, tts = tenv.reset(trandom.PRNGKey(3, "cpu"))
+    for t in range(tc.num_moves):
+        acts = policy_np(t, np.asarray(jts.info.effective_actions))
+        jstates, jts = jenv.step(jstates, jnp.asarray(acts))
+        tstates, tts = tenv.step(tstates, torch.from_numpy(acts))
+        assert_state(tstates, jstates, t)
+        assert_info(tts.info, jts.info, t)
+    assert tts.done.all() and not tts.info.effective_actions.any()
+    with pytest.raises(TypeError):
+        tbat.BatchedTileMatchEnv(tc, 6, False, "cpu")
+
+
 def test_rollout_default_policy_plays_effective_moves():
     _, tc = cfgs(0)
     _, rewards, dones = tbat.rollout(tc, trandom.PRNGKey(1, "cpu"), 16, 12)
@@ -99,7 +131,7 @@ def test_rollout_default_policy_plays_effective_moves():
 
 def test_batched_env_matches_functional_api():
     _, tc = cfgs(0)
-    env = tbat.BatchedTileMatchEnv(tc, 20, "cpu")
+    env = tbat.BatchedTileMatchEnv(tc, 20, device="cpu")
     key = trandom.PRNGKey(2, "cpu")
     states, ts = env.reset(key)
     fstates, fts = tbat.batched_reset(tc, key, 20)
@@ -118,7 +150,7 @@ def test_batched_env_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tbat.BatchedTileMatchEnv(tc, 4)
-    assert tbat.BatchedTileMatchEnv(tc, 4, "cpu").device == torch.device("cpu")
+    assert tbat.BatchedTileMatchEnv(tc, 4, device="cpu").device == torch.device("cpu")
 
 
 def test_interop_round_trip():

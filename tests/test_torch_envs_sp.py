@@ -72,7 +72,7 @@ def test_batched_step_auto_reset_matches_jax(R, K, specials, seed):
 def test_batched_env_matches_jax_env():
     jc, tc = _cfgs(8, 8, 4, 3, ALL)
     jenv = jbat.BatchedTileMatchEnv(jc, 16)
-    tenv = tbat.BatchedTileMatchEnv(tc, 16, "cpu")
+    tenv = tbat.BatchedTileMatchEnv(tc, 16, device="cpu")
     jstates, jts = jenv.reset(jax.random.PRNGKey(11))
     tstates, tts = tenv.reset(trandom.PRNGKey(11, "cpu"))
     for t in range(4):

@@ -96,7 +96,7 @@ def test_env_on_card_equals_env_on_cpu(cuda_device):
     cfg = _no_specials(10, 10, 4, moves=5)
     out = {}
     for dev in ("cpu", cuda_device):
-        env = BatchedTileMatchEnv(cfg, 96, dev)
+        env = BatchedTileMatchEnv(cfg, 96, device=dev)
         key = trandom.PRNGKey(3, dev)
         states, ts = env.reset(key)
         rows = []
@@ -225,7 +225,7 @@ def test_no_specials_env_launches_the_settled_mask_kernel(cuda_device):
     the plain mask is never called on a CUDA tensor."""
     smoke = _chip_smoke()
     cfg = _no_specials(10, 10, 4, moves=5)
-    env = BatchedTileMatchEnv(cfg, 64, cuda_device)
+    env = BatchedTileMatchEnv(cfg, 64, device=cuda_device)
     key = trandom.PRNGKey(4, cuda_device)
     with smoke.plain_mask_refused():
         states, ts = env.reset(key)
@@ -266,7 +266,7 @@ def test_specials_env_on_card_equals_env_on_cpu(cuda_device, R, C, K, B, moves, 
     cfg = _specials(R, C, K, moves=moves)
     out = {}
     for dev in ("cpu", cuda_device):
-        env = BatchedTileMatchEnv(cfg, B, dev)
+        env = BatchedTileMatchEnv(cfg, B, device=dev)
         key = trandom.PRNGKey(5, dev)
         states, ts = env.reset(key)
         rows = []
@@ -288,7 +288,7 @@ def _large_board_env_matches(cuda_device, size, specials, B, steps):
     cfg = _specials(size, size, 6, moves=2, **kw)
     out = {}
     for dev in ("cpu", cuda_device):
-        env = BatchedTileMatchEnv(cfg, B, dev)
+        env = BatchedTileMatchEnv(cfg, B, device=dev)
         key = trandom.PRNGKey(9, dev)
         states, ts = env.reset(key)
         rows = []

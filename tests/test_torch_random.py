@@ -81,3 +81,62 @@ def test_permutation(n):
     got = trandom.permutation(tk, n).numpy()
     assert np.array_equal(got, want)
     assert np.array_equal(np.sort(got, axis=-1), np.broadcast_to(np.arange(n), got.shape))
+
+
+@pytest.mark.parametrize("lo,hi", [(None, None), (-0.5, 2.25), (float(np.finfo(np.float32).tiny), 1.0)])
+@pytest.mark.parametrize("shape", [(1,), (1000,), (37, 19), (4, 5, 6)])
+def test_uniform_word_for_word(shape, lo, hi):
+    k = jax.random.PRNGKey(12)
+    tk = torch.from_numpy(np.asarray(k).astype(np.int64))
+    kw = {} if lo is None else dict(minval=lo, maxval=hi)
+    want = np.asarray(jax.random.uniform(k, shape, **kw))
+    got = trandom.uniform(tk, shape, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("B,A,p", [(1, 24, 0.3), (130, 40, 0.1), (257, 180, 0.2), (64, 7, 0.9)])
+def test_categorical_equals_jax(B, A, p):
+    """The Gumbel draw's uniforms word for word and the argmax board for
+    board, over masks with rows that have no effective action."""
+    rng = np.random.default_rng(B * A)
+    mask = rng.random((B, A)) < p
+    mask[::5] = False
+    logits = np.where(mask, 0.0, -np.inf).astype(np.float32)
+    k = jax.random.PRNGKey(B + A)
+    tk = torch.from_numpy(np.asarray(k).astype(np.int64))
+    tiny = float(np.finfo(np.float32).tiny)
+    u_want = np.asarray(jax.random.uniform(k, (B, A), minval=tiny, maxval=1.0))
+    u_got = trandom.uniform(tk, (B, A), minval=tiny, maxval=1.0).numpy()
+    assert np.array_equal(u_got.view(np.uint32), u_want.view(np.uint32))
+    want = np.asarray(jax.random.categorical(k, jnp.asarray(logits), axis=-1))
+    got = trandom.categorical(tk, torch.from_numpy(logits), axis=-1).numpy()
+    assert np.array_equal(got, want)
+    assert mask[np.arange(B), got][mask.any(-1)].all()
+
+
+def test_categorical_over_real_logits():
+    k = jax.random.PRNGKey(4)
+    tk = torch.from_numpy(np.asarray(k).astype(np.int64))
+    logits = np.random.default_rng(3).normal(size=(300, 12)).astype(np.float32)
+    want = np.asarray(jax.random.categorical(k, jnp.asarray(logits)))
+    assert np.array_equal(trandom.categorical(tk, torch.from_numpy(logits)).numpy(), want)
+
+
+@pytest.mark.parametrize("hi", [1, 7, 1000, 65537, 100_000, 2**31 - 1])
+def test_randint_tensor_maxval(hi):
+    """``maxval`` as an int32 tensor (a replay buffer's size) draws what
+    the int does, spans above 2**16 included."""
+    k = jax.random.PRNGKey(21)
+    tk = torch.from_numpy(np.asarray(k).astype(np.int64))
+    want = np.asarray(jax.random.randint(k, (500,), 0, jnp.int32(hi), dtype=jnp.int32))
+    assert np.array_equal(trandom.randint(tk, (500,), 0, hi).numpy(), want)
+    got = trandom.randint(tk, (500,), 0, torch.tensor(hi, dtype=torch.int32))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def test_randint_empty_span_draws_minval():
+    k = jax.random.PRNGKey(2)
+    tk = torch.from_numpy(np.asarray(k).astype(np.int64))
+    want = np.asarray(jax.random.randint(k, (8,), 0, jnp.maximum(jnp.int32(0), 0), dtype=jnp.int32))
+    assert np.array_equal(trandom.randint(tk, (8,), 0, torch.tensor(0)).numpy(), want)

@@ -1,9 +1,12 @@
 """Shared by the tests that hold the PyTorch port against the JAX package:
-paired configs, field-by-field comparison and the deterministic policy."""
+paired configs, field-by-field comparison, the deterministic policy and
+the learners' leaf-by-leaf gaps."""
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 from tile_match_tpu.config import EnvConfig as JaxConfig
 from tile_match_tpu_torch.config import EnvConfig
@@ -31,3 +34,49 @@ def assert_state(tstate, jstate, tag):
 def assert_info(tinfo, jinfo, tag):
     for f in INFO_FIELDS:
         assert np.array_equal(getattr(tinfo, f).numpy(), np.asarray(getattr(jinfo, f))), f"{f} @ {tag}"
+
+
+# The learners against the JAX agents, leaf by leaf and by relative norm.
+# Adam's first moment (a running mean of the gradients): the bfloat16
+# hidden layers round the two packages' products at different places
+# (up to 0.044 over ten seeds of the 4x4x3x5 tests); a gradient of the
+# wrong sign, zero or twice as large is off by 1 or more.
+MU_REL = 8e-2
+
+
+def rel_gap(got, want) -> float:
+    """|got - want| / |want| in float64 (|got| where want is 0)."""
+    got = torch.as_tensor(got).detach().double()
+    want = torch.as_tensor(want).detach().double()
+    scale = want.norm()
+    return float((got - want).norm() / scale) if scale > 0 else float(got.norm())
+
+
+def change_tol(n: int) -> float:
+    """Tolerance of the change of a leaf of n entries from its start:
+    MU_REL, or about three of its entries moving the other way.  Adam
+    moves an entry by about lr sign(g), so an entry whose gradient lies
+    within rounding of 0 may go either way, each adding 2 lr to a change
+    of norm about lr sqrt(n) (one such entry of a 128-entry bias: 0.18)."""
+    return max(MU_REL, 3.5 / math.sqrt(n))
+
+
+def assert_moments(mu: dict, jmu: dict, tag) -> None:
+    """The port's Adam first moments (by parameter name) against optax's
+    ``mu`` in the port's layout."""
+    for name, want in jmu.items():
+        assert float(want.norm()) > 0, (tag, name)
+        gap = rel_gap(mu[name], want)
+        assert gap < MU_REL, (tag, name, gap)
+
+
+def assert_changes(params: dict, jparams: dict, start: dict, tag) -> None:
+    """Each leaf's change from the common start against the JAX agent's."""
+    for name, want in jparams.items():
+        gap = rel_gap(params[name] - start[name], want - start[name])
+        assert gap < change_tol(want.numel()), (tag, name, gap)
+
+
+def port_moments(net, opt) -> dict:
+    """Adam's first moment of each of ``net``'s parameters, by name."""
+    return {n: opt.state[p]["exp_avg"].clone() for n, p in net.named_parameters()}

@@ -92,15 +92,13 @@ def batched_step(
 
 
 def random_effective(key, ts: TimeStep) -> torch.Tensor:
-    """A uniform draw among each board's effective actions, from threefry
-    bits of ``split(key, B)`` (action 0 where a board has none).  This is
-    the port's own draw, not ``jax.random.categorical``."""
+    """A uniform draw among each board's effective actions, action 0 where
+    a board has none: ``jax.random.categorical`` over the masked logits
+    from one key int64[2], as the JAX ``rollout``'s default policy draws."""
     mask = ts.info.effective_actions
-    n_eff = mask.sum(-1)
-    bits = trandom.random_bits(trandom.split(key, mask.shape[0]), (1,))[:, 0]
-    pick = bits % n_eff.clamp(min=1)
-    hit = mask & (mask.cumsum(-1) == pick[:, None] + 1)
-    return torch.where(n_eff > 0, hit.to(torch.int32).argmax(-1), 0)
+    logits = torch.where(mask, 0.0, -torch.inf)
+    acts = trandom.categorical(key, logits, axis=-1)
+    return torch.where(mask.any(-1), acts, 0).to(torch.int32)
 
 
 def rollout(
@@ -137,7 +135,7 @@ class BatchedTileMatchEnv:
     ``device=None`` means the card, and raises when there is none."""
 
     def __init__(
-        self, cfg: EnvConfig, batch_size: int, device=None, auto_reset: bool = True
+        self, cfg: EnvConfig, batch_size: int, auto_reset: bool = True, *, device=None
     ):
         self.cfg = cfg
         self.batch_size = batch_size

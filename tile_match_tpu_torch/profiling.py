@@ -1,7 +1,7 @@
 """Profile the PyTorch port's batched step on one CUDA card (counterpart of
 ``tile_match_tpu.profiling``, on ``torch.profiler``).
 
-    python -m tile_match_tpu_torch.profiling [--config 3] [--no-bomb] [--batch 16384] [--steps 10]
+    python -m tile_match_tpu_torch.profiling [--config 3] [--no-bomb] [--batch 16384] [--steps 10] [--dqn]
 
 Builds config ``--config`` of ``bench.py`` (0-4), without the bomb with
 ``--no-bomb`` (K2's no-bomb case table), resets a batch, runs 4
@@ -17,8 +17,12 @@ synchronisation) around the step's parts — the combination branch, the
 kernel launches, the full machinery trips and their detection,
 classification and resolution, the post-move mask and the playability
 loop — printed in ms per step (nested parts count in their callers too).
-Every number is the card's; the card's name and power limit head the
-output.  Imports no JAX.
+With ``--dqn`` the step is ``models.dqn.make_dqn``'s train step (hidden
+512, default epsilon schedule) on a batch of ``--batch`` boards, and the
+launches a step are also split between the env step, the epsilon-greedy
+draw (``act_greedy_or_random``) and the rest (network passes, loss,
+backward, Adam).  Every number is the card's; the card's name and power
+limit head the output.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -60,10 +64,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-bomb", action="store_true", help="drop the bomb from the config")
+    ap.add_argument("--dqn", action="store_true",
+                    help="profile the DQN train step in place of the env step")
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA card", file=sys.stderr)
@@ -88,16 +94,40 @@ def main() -> int:
     if 2 * args.steps + 4 >= moves:
         raise SystemExit(f"--steps must leave the window before the reset at step {moves}")
     dev = torch.device("cuda", 0)
-    env = BatchedTileMatchEnv(cfg, args.batch, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    states, ts = env.reset(trandom.PRNGKey(0, dev))
+    parts = []  # (label) of the train step's parts whose launches are counted
+    if args.dqn:
+        from .models import dqn
 
-    def one_step():
-        nonlocal states, ts
-        mask = ts.info.effective_actions
-        actions = torch.where(mask, torch.rand(mask.shape, generator=gen, device=dev), -1.0).argmax(-1)
-        states, ts = env.step(states, actions)
+        init_fn, train_step, _ = dqn.make_dqn(cfg, batch_size=args.batch, device=dev)
+        key, k_init = trandom.split(trandom.PRNGKey(0, dev))
+        state = init_fn(k_init)
+
+        def labelled(fn, label):
+            def wrapper(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+            return wrapper
+
+        for name, label in (("batched_step", "env step"), ("act_greedy_or_random", "draw")):
+            setattr(dqn, name, labelled(getattr(dqn, name), label))
+            parts.append(label)
+
+        def one_step():
+            nonlocal state, key
+            key, k = trandom.split(key)
+            state, _ = train_step(state, k)
+    else:
+        env = BatchedTileMatchEnv(cfg, args.batch, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        states, ts = env.reset(trandom.PRNGKey(0, dev))
+
+        def one_step():
+            nonlocal states, ts
+            mask = ts.info.effective_actions
+            actions = torch.where(mask, torch.rand(mask.shape, generator=gen, device=dev),
+                                  -1.0).argmax(-1)
+            states, ts = env.step(states, actions)
 
     for _ in range(4):
         one_step()
@@ -113,10 +143,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the labelled parts' ranges also appear on the device's timeline: not work
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in parts]
     kernels = [e for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
-    launches = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    launch_events = [e for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel")]
+    launches = len(launch_events)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -128,6 +161,14 @@ def main() -> int:
     print(f"device busy {busy_ms / n:.3f} ms/step, {100 * busy_ms / wall_ms:.1f}% of wall")
     print(f"kernel launches {launches / n:.1f}/step; of the port's kernels: "
           f"{', '.join(f'{k} {m.launches / n:.2f}' for k, m in wrappers.items())}")
+    for label in parts:
+        spans = [e.time_range for e in prof.events() if e.name == label]
+        inside = sum(1 for e in launch_events
+                     if any(r.start <= e.time_range.start < r.end for r in spans))
+        launches -= inside
+        print(f"  in the {label}: {inside / n:.1f}/step")
+    if parts:
+        print(f"  in the rest of the train step: {launches / n:.1f}/step")
     print(f"device time: port kernels {port_us / 1e3 / n:.3f} ms/step, "
           f"other device work {other_us / 1e3 / n:.3f} ms/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:

@@ -5,6 +5,9 @@ threefry keys (``jax.random.split`` / ``fold_in`` / ``randint`` /
 ``permutation`` with ``jax_threefry_partitionable`` on, the default since
 JAX 0.5).  Threefry is pure 32-bit integer arithmetic, so these functions
 reproduce JAX's bits exactly; no ``torch.Generator`` is involved.
+``uniform`` is exact too (integer-derived floats); ``categorical`` takes
+two logarithms of those uniforms, which may differ from XLA's by an ulp,
+so its argmax can flip only where two draws lie within an ulp.
 
 A key is the pair of raw uint32 words JAX stores, held as int64 values in
 [0, 2**32) with the key words on the last dimension: ``keys[..., 2]``.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -75,24 +79,53 @@ def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return (b0 ^ b1).reshape(*keys.shape[:-1], *shape)
 
 
-def randint(
-    keys: torch.Tensor, shape: Sequence[int], minval: int, maxval: int
-) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``."""
-    span = maxval - minval
-    if span <= 0:
-        span = 1
-    if span > (1 << 31):
-        raise ValueError(f"span {span} too wide for int32 randint")
+def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``.
+
+    ``maxval`` is an int or an integer tensor that broadcasts against
+    ``shape`` (a bound computed on the card, read without a host sync)."""
+    if torch.is_tensor(maxval):
+        span = maxval.to(torch.int64) - minval
+        span = torch.where(span <= 0, 1, span)
+    else:
+        span = max(maxval - minval, 1)
+        if span > (1 << 31):
+            raise ValueError(f"span {span} too wide for int32 randint")
     halves = split(keys)
     hi = random_bits(halves[..., 0, :], shape)
     lo = random_bits(halves[..., 1, :], shape)
-    # JAX's unsigned double-width remainder; products stay below 2**62 and
-    # are wrapped to 32 bits as the uint32 arithmetic would.
-    mult = (((1 << 16) % span) ** 2) % span
+    # JAX's unsigned double-width remainder in uint32 arithmetic: every
+    # product is wrapped to 32 bits (products stay below 2**62 in int64).
+    mult = (((65536 % span) ** 2) & MASK32) % span
     off = (((hi % span) * mult) & MASK32) + (lo % span)
     off = (off & MASK32) % span
     return (minval + off).to(torch.int32)
+
+
+def uniform(keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: the
+    top 23 bits of each word as the mantissa of a float in [1, 2), minus 1,
+    scaled into [minval, maxval).
+
+    XLA contracts the scaling ``u * (maxval - minval) + minval`` into one
+    fused multiply-add in float32.  The product of two float32 values is
+    exact in float64, so the sum is taken there and rounded to float32
+    once more; that equals the fused result except where the float64 sum
+    lands on a float32 tie, which cannot happen for [0, 1) or [tiny, 1)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = (random_bits(keys, shape) >> 9) | 0x3F800000  # below 2**31
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    scaled = (floats.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)
+    return torch.clamp_min(scaled, float(lo))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` with one key int64[2]:
+    jax's default ``mode="low"`` Gumbel-max draw, the argmax of ``logits``
+    plus ``-log(-log(u))`` for u uniform in [tiny, 1), one word per logit
+    counted in row-major order.  Returns int64 indices."""
+    u = uniform(keys, logits.shape, minval=np.finfo(np.float32).tiny, maxval=1.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=axis)
 
 
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:

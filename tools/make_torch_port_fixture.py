@@ -21,13 +21,26 @@ and TimeStep field of every step:
   RNG modes ("threefry" and "numpy"), for four special sets — all, none,
   both lasers, cookie only — under the same policy with board b = the
   episode's index.
+* ``tests/data/torch_port_fixture_dqn.npz``: the training path's draws
+  and a DQN run.  ``jax.random.uniform`` over [16384] and
+  ``jax.random.categorical`` over a [16384, 180] effective-action mask
+  (threefry bits, one row in 97 with no effective action): the draw,
+  the first 64 rows of its uniforms and a digest of them all; 40
+  ``make_dqn`` train steps on config 1 at batch 256 and hidden 512 with
+  epsilon held at 1, so that actions depend on the keys alone, from
+  weights drawn from a numpy seed (``seeded_qnet_params``), not flax's
+  own: each step's actions, env rewards and dones, loss and mean |TD|, the
+  final env state and mask, and after steps 1, 5 and 40 Adam's first
+  moment and the weights' change from the seeded start at 512 entries of
+  each leaf (``learner_samples``); and the flax ``QNetwork``'s Q on 64 of
+  the final boards under the seeded weights.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
 
-``tests/test_torch_envs.py``, ``tests/test_torch_envs_sp.py`` and
-``tests/test_torch_gym.py`` replay the files through the port and check
-that this script still writes the same arrays; ``chip_smoke.py`` replays
-them on the card.
+``tests/test_torch_envs.py``, ``tests/test_torch_envs_sp.py``,
+``tests/test_torch_gym.py`` and ``tests/test_torch_models_fixture.py``
+replay the files through the port and check that this script still writes
+the same arrays; ``chip_smoke.py`` replays them on the card.
 """
 
 from __future__ import annotations
@@ -61,6 +74,24 @@ GYM_SETS = (
 )
 GYM_CONFIG = (10, 10, 4, 8)  # rows, cols, colours, moves
 GYM_SEED = 7
+FIXTURE_DQN = os.path.join(ROOT, "tests", "data", "torch_port_fixture_dqn.npz")
+# the draws: (boards, actions) of the categorical
+DRAW_SHAPE = (16384, 180)
+DRAW_SEED = 31
+DRAW_ROWS = 64  # rows of the categorical's uniforms stored in full
+# the DQN run: config 1, make_dqn's default batch, hidden 512
+DQN_BATCH = 256
+DQN_HIDDEN = 512
+DQN_STEPS = 40
+DQN_SEED = 5
+QNET_SEED = 11
+Q_BOARDS = 64
+# the DQN run's learner: loss and |TD| every step; after these steps, Adam's
+# first moment and each weight's change from the seeded start, at
+# LEARNER_SAMPLES entries of each leaf drawn from LEARNER_SEED
+LEARNER_STEPS = (1, 5, 40)
+LEARNER_SAMPLES = 512
+LEARNER_SEED = 13
 
 # Stored narrower than their working dtype to keep the file small; values
 # are compared, not bytes.
@@ -171,12 +202,174 @@ def record_gym(modes=("threefry", "numpy")) -> list:
     return episodes
 
 
+def seeded_qnet_params(in_features: int, hidden: int, num_actions: int, seed: int) -> dict:
+    """QNetwork parameters in flax's layout ({"params": {"dense1": {"kernel"
+    [in, out], "bias"}, "dense2", "head"}}, float32 numpy) drawn from a
+    numpy seed: kernels uniform in +-sqrt(3 / fan-in), biases in +-0.1."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, (n_in, n_out) in (("dense1", (in_features, hidden)), ("dense2", (hidden, hidden)),
+                                ("head", (hidden, num_actions))):
+        lim = np.sqrt(3.0 / n_in)
+        params[name] = {
+            "kernel": ((rng.random((n_in, n_out)) * 2 - 1) * lim).astype(np.float32),
+            "bias": ((rng.random(n_out) * 2 - 1) * 0.1).astype(np.float32),
+        }
+    return {"params": params}
+
+
+def port_leaves(tree) -> dict:
+    """A QNetwork's flax parameters (or an optax moment of them) as numpy
+    arrays named and shaped as the port's state dict: each kernel [in,
+    out] a weight [out, in]."""
+    out = {}
+    for name, layer in tree["params"].items():
+        out[f"{name}.weight"] = np.asarray(layer["kernel"], np.float32).T
+        out[f"{name}.bias"] = np.asarray(layer["bias"], np.float32)
+    return out
+
+
+def learner_samples(leaves: dict) -> dict:
+    """The recorded entries of each leaf (port names and shapes): up to
+    LEARNER_SAMPLES flat indices of each, drawn in the order of the port's
+    state dict from LEARNER_SEED."""
+    rng = np.random.default_rng(LEARNER_SEED)
+    out = {}
+    for name in ("dense1.weight", "dense1.bias", "dense2.weight", "dense2.bias",
+                 "head.weight", "head.bias"):
+        flat = np.asarray(leaves[name], np.float32).reshape(-1)
+        idx = np.sort(rng.choice(flat.size, min(flat.size, LEARNER_SAMPLES), replace=False))
+        out[name] = flat[idx]
+    return out
+
+
+def record_draws() -> dict:
+    """The draws: keys (mask, categorical, uniform) from ``split(PRNGKey(
+    DRAW_SEED), 3)``; the mask has a fifth of the actions effective and
+    none in every 97th row."""
+    import jax
+    import jax.numpy as jnp
+
+    k_mask, k_cat, k_unif = jax.random.split(jax.random.PRNGKey(DRAW_SEED), 3)
+    mask = np.asarray(jax.random.bits(k_mask, DRAW_SHAPE, np.uint32)) % 5 == 0
+    mask[::97] = False
+    tiny = np.finfo(np.float32).tiny
+    u = np.asarray(jax.random.uniform(k_cat, DRAW_SHAPE, minval=tiny, maxval=1.0))
+    bits = u.view(np.uint32).astype(np.uint64)
+    return {
+        "draw_uniform": np.asarray(jax.random.uniform(k_unif, DRAW_SHAPE[:1])),
+        "draw_categorical": np.asarray(
+            jax.random.categorical(k_cat, jnp.where(jnp.asarray(mask), 0.0, -jnp.inf), axis=-1)
+        ).astype(np.int16),
+        "draw_cat_uniform_rows": u[:DRAW_ROWS],
+        "draw_cat_uniform_digest": np.asarray(
+            [int(bits.sum()) % (1 << 63), int(np.bitwise_xor.reduce(bits.reshape(-1)))], np.int64
+        ),
+    }
+
+
+def dqn_config():
+    """Config 1 (no specials) of the JAX package."""
+    from tile_match_tpu.config import EnvConfig
+
+    return EnvConfig.create(**CONFIG, colourless_specials=(), colour_specials=())
+
+
+def record_dqn() -> dict:
+    """The JAX DQN run at epsilon 1 and the seeded-weight flax Q."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import jax
+
+    from tile_match_tpu.envs.batched import batched_step
+    from tile_match_tpu.models.dqn import QNetwork, _encode, make_dqn
+
+    cfg = dqn_config()
+    init_fn, train_step, act_fn = make_dqn(cfg, batch_size=DQN_BATCH, hidden=DQN_HIDDEN,
+                                           eps_start=1.0, eps_end=1.0)
+    step = jax.jit(train_step)
+    act = jax.jit(act_fn)
+    env_step = jax.jit(lambda s, a, m: batched_step(cfg, s, a, eff_mask=m))
+    key = jax.random.PRNGKey(DQN_SEED)
+    key, k_init = jax.random.split(key)
+    state = jax.jit(init_fn)(k_init)
+    params = seeded_qnet_params(int(np.prod(state.obs_planes.shape[1:])) + 1, DQN_HIDDEN,
+                                cfg.num_actions, QNET_SEED)
+    seeded = jax.tree.map(jax.numpy.asarray, params)
+    # the learner starts from the seeded weights (Adam's zero moments do not
+    # depend on them); at epsilon 1 the actions do not either
+    state = state._replace(params=seeded, target_params=seeded)
+    start = port_leaves(params)
+    actions, rewards, dones, losses, tds, mu, change = [], [], [], [], [], [], []
+    for t in range(DQN_STEPS):
+        key, k = jax.random.split(key)
+        a = act(state.params, state.obs_planes, state.obs_moves, state.eff_mask,
+                jax.random.split(k)[1], 1.0)
+        _, ts = env_step(state.env_states, a, state.eff_mask)
+        state, metrics = step(state, k)
+        actions.append(np.asarray(a))
+        rewards.append(np.asarray(ts.reward))
+        dones.append(np.asarray(ts.done))
+        losses.append(float(metrics["loss"]))
+        tds.append(float(metrics["td_abs"]))
+        if t + 1 in LEARNER_STEPS:
+            now = port_leaves(jax.tree.map(np.asarray, state.params))
+            mu.append(learner_samples(port_leaves(jax.tree.map(np.asarray, state.opt_state[0].mu))))
+            change.append(learner_samples({n: now[n] - start[n] for n in now}))
+    final = state.env_states
+    net = QNetwork(num_actions=cfg.num_actions, hidden=DQN_HIDDEN)
+    planes, moves = _encode(cfg, jax.tree.map(lambda x: x[:Q_BOARDS], final))
+    q = net.apply(seeded, planes, moves)
+    out = {
+        "dqn_actions": np.stack(actions).astype(np.int16),
+        "dqn_rewards": np.stack(rewards),
+        "dqn_dones": np.stack(dones),
+        "dqn_colour": np.asarray(final.colour).astype(np.int8),
+        "dqn_kind": np.asarray(final.kind).astype(np.int8),
+        "dqn_timer": np.asarray(final.timer).astype(np.int8),
+        "dqn_key": np.asarray(final.key),
+        "dqn_eff_mask": np.asarray(state.eff_mask),
+        "flax_q": np.asarray(q),
+        "dqn_loss": np.asarray(losses, np.float32),
+        "dqn_td_abs": np.asarray(tds, np.float32),
+    }
+    for name in mu[0]:
+        out[f"dqn_mu_{name}"] = np.stack([m[name] for m in mu])
+        out[f"dqn_change_{name}"] = np.stack([c[name] for c in change])
+    out.update(record_draws())
+    out.update(record_entry())
+    return out
+
+
+def record_entry() -> dict:
+    """``__graft_entry__.entry``'s forward (config 3, 64 boards reset from key
+    0, action 0) under the seeded weights: the reset boards, Q, rewards and
+    next boards."""
+    import jax
+
+    import __graft_entry__
+
+    forward, (params, states, actions) = __graft_entry__.entry()
+    layers = params["params"]
+    seeded = seeded_qnet_params(layers["dense1"]["kernel"].shape[0], DQN_HIDDEN,
+                                layers["head"]["kernel"].shape[1], QNET_SEED)
+    q, reward, nxt = jax.jit(forward)(jax.tree.map(jax.numpy.asarray, seeded), states, actions)
+    out = {"entry_q": np.asarray(q), "entry_reward": np.asarray(reward)}
+    for prefix, st in (("entry_reset", states), ("entry_next", nxt)):
+        out[f"{prefix}_colour"] = np.asarray(st.colour).astype(np.int8)
+        out[f"{prefix}_kind"] = np.asarray(st.kind).astype(np.int8)
+        out[f"{prefix}_timer"] = np.asarray(st.timer).astype(np.int8)
+        out[f"{prefix}_key"] = np.asarray(st.key)
+    return out
+
+
 def main() -> None:
     os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
     for path, arrays in (
         (FIXTURE, record()),
         (FIXTURE_CFG3, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_CFG3)),
         (FIXTURE_NOBOMB, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_NOBOMB)),
+        (FIXTURE_DQN, record_dqn()),
     ):
         np.savez_compressed(path, **arrays)
         print(f"wrote {path}: {os.path.getsize(path)} bytes")

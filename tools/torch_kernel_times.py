@@ -175,7 +175,7 @@ def main() -> int:
 
     engine.fused_cascade = capture
     try:
-        env = BatchedTileMatchEnv(cfg1, B, dev)
+        env = BatchedTileMatchEnv(cfg1, B, device=dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(chip_smoke.SEED)
         states, ts = env.reset(trandom.PRNGKey(chip_smoke.SEED, dev))

@@ -71,7 +71,31 @@ Phases, one line each or more; any failure exits non-zero:
   14. saves the DQN state, runs 8 steps, restores it and runs the same 8:
      env states, parameters and Adam moments equal (torch.equal);
   15. runs ``entry()``'s forward (every special, B=64) on the seeded
-     weights against the recorded JAX entry: K2 and K3 launch.
+     weights against the recorded JAX entry: K2 and K3 launch;
+  16-19 run the scale-out layer (``tile_match_tpu_torch.parallel``), the
+     plain settled mask still refused:
+  16. starts a one-rank NCCL group (``initialize_distributed`` on a free
+     localhost port); ``sharded_rollout`` on ``make_mesh(dp=1)`` replays
+     the recorded JAX ``sharded_rollout`` (tests/data/
+     torch_port_fixture_sharded.npz: config 3, 64 boards, 8 steps) bit for
+     bit; then config 1 and config 3 at B=16384 for 8 steps: K1 (config 1)
+     and K2 and K3 (config 3) on every step, K3 at config 1's reset;
+     board-steps/s and launches a step;
+  17. two ranks sharing the card over gloo (``parallel.launch``): dp=2 on
+     config 3 at B=16384 for 8 steps equals phase 16's run board for board
+     (``gather_boards``), each rank's board-steps/s; ``dryrun_multichip(2)``;
+  18. ``sharded_train_step`` at (dp, tp) = (1, 1) over NCCL replays the two
+     recorded JAX sharded train steps (config 1, B=256, hidden 512,
+     epsilon 1, seeded weights): the env side bit for bit, loss within
+     rtol 5e-2, the learner leaf by leaf; ``make_dqn``'s unsharded step
+     from the same weights: env side, losses and weights bit for bit;
+     then (1, 2) on two ranks sharing the card over gloo against (1, 1):
+     losses within rtol 5e-2, each leaf's change within LEARNER_DRIFT_REL;
+     ms a step;
+  19. ``debug.checked_step`` over the recorded config-3 boards; a painted
+     ``max_lines=1`` board raises on the card, as does a step cut at
+     ``max_cascades=0``; ``profiling.measure_throughput`` on config 1 at
+     B=16384 prints its JSON.
 The line before the last is the kernels' JSON record (``launches``: over
 the batched drives of phases 5-7, the main paths; the training path's
 launches stand on its phase lines, phases 10 and 12 a step); the last
@@ -83,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -97,6 +122,7 @@ FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz"
 FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
 FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
 FIXTURE_DQN = os.path.join(ROOT, "tests", "data", "torch_port_fixture_dqn.npz")
+FIXTURE_SHARDED = os.path.join(ROOT, "tests", "data", "torch_port_fixture_sharded.npz")
 GOLDEN = os.path.join(ROOT, "tests", "golden_episodes.json")
 # name -> (module under tile_match_tpu_torch.ops, csrc source, TPU kernel replaced)
 KERNELS = {
@@ -110,8 +136,8 @@ SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 25
 # 32 by 32 (one library whose geometry is read at run time)
 LIBRARY_SHAPES = {
     "cascade": ((10, 10), (5, 5), (20, 20), (36, 36)),
-    "cascade_sp": ((10, 10), (6, 6), (8, 8), (20, 20), (36, 36)),
-    "mask_sp": ((10, 10), (6, 6), (8, 8), (20, 20), (36, 36)),
+    "cascade_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
+    "mask_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
 }
 # K3 alone, with specials and without: (R, C, K, B)
 K3_SHAPES = ((10, 10, 4, 1), (10, 10, 4, 130), (10, 10, 4, 16384), (20, 20, 6, 1024),
@@ -132,6 +158,9 @@ MAIN_PATHS = {
 }
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
+# phases 16-17: steps of each sharded rollout; phase 18: timed train steps
+SCALE_STEPS = 8
+SCALE_TRAIN_STEPS = 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
 SEED = 0
 # phase 10's learner against the recorded JAX one, leaf by leaf by relative
@@ -1152,6 +1181,417 @@ def training_path(device, smi) -> None:
           f"Q within rtol 2e-2, atol 2e-2; launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-19: the scale-out layer, debug checks and throughput
+# ---------------------------------------------------------------------------
+def sharded_run(cfg, mesh, batch, steps, seed, tag, required=()):
+    """``parallel.sharded_rollout`` of ``cfg`` on ``mesh`` for ``steps``
+    steps from ``PRNGKey(seed)``, each step timed by the host clock up to a
+    device synchronisation, and each kernel's launches counted by step:
+    every kernel in ``required`` must launch on every step.  Returns this
+    rank's board-steps/s, the launches a step, those of the whole run (the
+    reset's too), the stats and the gathered boards and rewards (numpy)."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.interop import state_to_numpy
+    from tile_match_tpu_torch.parallel import gather_boards, sharding
+
+    device = sharding.mesh_device(mesh)
+    real = sharding.batched_step
+    per_step, step_s = [], []
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def probed(*args, **kwargs):
+        sync()
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        after = _launch_counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+        return out
+
+    sharding.batched_step = probed
+    start = _launch_counts()
+    try:
+        states, rew, stats = sharding.sharded_rollout(cfg, mesh, batch, steps)(
+            trandom.PRNGKey(seed, device))
+    finally:
+        sharding.batched_step = real
+    end = _launch_counts()
+    for t, counts in enumerate(per_step):
+        for name in required:
+            check(counts[name] > 0, f"{tag} step {t}: kernel {name} was not launched")
+    check(len(per_step) == steps, f"{tag}: {len(per_step)} steps of {steps}")
+    local = rew.shape[0]
+    boards = state_to_numpy(gather_boards(states, mesh))
+    boards["reward"] = gather_boards(rew, mesh).cpu().numpy()
+    return {
+        "board_steps_per_s": local * steps / sum(step_s),
+        "launches_per_step": {n: sum(c[n] for c in per_step) / steps for n in KERNELS},
+        "launches": {n: end[n] - start[n] for n in KERNELS},  # the reset's too
+        "stats": {k: v.cpu().numpy() for k, v in stats.items()},
+        "boards": boards,
+    }
+
+
+def replay_sharded_rollout(mesh) -> dict:
+    """Phase 16a: ``sharded_rollout`` on a one-rank ``mesh`` against the
+    recorded JAX ``sharded_rollout`` (config 3, 64 boards, 8 steps):
+    per-board rewards, every state leaf and the stats, bit for bit.
+    Returns each kernel's launches."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.interop import state_to_numpy
+    from tile_match_tpu_torch.parallel import sharding
+
+    f = _fixture_tool()
+    d = np.load(FIXTURE_SHARDED)
+    device = sharding.mesh_device(mesh)
+    before = _launch_counts()
+    states, rew, stats = sharding.sharded_rollout(
+        _config(10, 10, 4, 30, ALL_SPECIALS), mesh, f.SHARDED_BATCH, f.SHARDED_STEPS
+    )(trandom.PRNGKey(f.SHARDED_SEED, device))
+    after = _launch_counts()
+    got = state_to_numpy(states)
+    for name in ("colour", "kind", "timer", "key"):
+        check(np.array_equal(got[name], d[f"rollout_{name}"].astype(got[name].dtype)),
+              f"sharded rollout: final {name} differs from the recorded JAX rollout")
+    check(np.array_equal(rew.cpu().numpy(), d["rollout_reward"]),
+          "sharded rollout: per-board rewards differ from the recorded JAX rollout")
+    for name in ("steps_done", "trips_sum", "shard_max_trips"):
+        check(np.array_equal(np.asarray(stats[name].cpu()), d[f"rollout_{name}"]),
+              f"sharded rollout: stats {name} differ from the recorded JAX rollout")
+    return {n: after[n] - before[n] for n in after}
+
+
+def _sharded_trainer(mesh, f):
+    """``sharded_train_step`` on config 1 at the recorded sizes, epsilon 1,
+    started from the recorded keys and the seeded weights."""
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.models import dqn
+    from tile_match_tpu_torch.parallel import sharding
+
+    cfg = _dqn_cfg()
+    init, step = sharding.sharded_train_step(cfg, mesh, make_dqn_kwargs=dict(
+        batch_size=f.DQN_BATCH, hidden=f.DQN_HIDDEN, eps_start=1.0, eps_end=1.0))
+    device = sharding.mesh_device(mesh)
+    keys = trandom.split(trandom.PRNGKey(f.SHARDED_SEED, device), f.SHARDED_TRAIN_STEPS + 1)
+    state = init(keys[0])
+    tree = f.seeded_qnet_params(dqn.input_size(cfg), f.DQN_HIDDEN, cfg.num_actions, f.QNET_SEED)
+    shard = sharding.params_from_flax(tree, mesh)
+    state.params.load_state_dict(shard)
+    state.target_params.load_state_dict(shard)
+    return state, step, keys, tree
+
+
+def replay_sharded_train(mesh) -> dict:
+    """Phase 18a: two ``sharded_train_step``s on a one-rank ``mesh`` against
+    the recorded JAX ones (config 1, batch 256, hidden 512, epsilon 1, the
+    seeded weights): the final env state and mask bit for bit, loss and
+    |TD| within rtol 5e-2, the reward mean within rtol 1e-6, and after each
+    step Adam's first moment and the weights' change leaf by leaf on the
+    recorded entries (LEARNER_GRAD_REL after step 1, else
+    LEARNER_DRIFT_REL).  Then the same two steps of ``make_dqn``'s
+    unsharded train step from the same weights, which the one-rank step
+    is: the env side, the losses and the weights bit for bit.  Returns the
+    largest gaps and the sharded state."""
+    import torch
+
+    from tile_match_tpu_torch.interop import state_to_numpy
+    from tile_match_tpu_torch.models import dqn
+    from tile_match_tpu_torch.parallel import sharding
+
+    f = _fixture_tool()
+    d = np.load(FIXTURE_SHARDED)
+    device = sharding.mesh_device(mesh)
+    state, step, keys, tree = _sharded_trainer(mesh, f)
+    start = f.port_leaves(tree)
+    gaps = {"loss": 0.0, "grad": 0.0, "mu": 0.0, "change": 0.0}
+    losses = []
+    for t in range(f.SHARDED_TRAIN_STEPS):
+        state, metrics = step(state, keys[t + 1])
+        got = np.asarray([float(metrics[n]) for n in ("loss", "td_abs", "reward_mean")])
+        want = d["train_metrics"][t]
+        err = np.abs(got - want) / np.abs(want)
+        check(bool((err[:2] < 5e-2).all()) and err[2] < 1e-6,
+              f"sharded train step {t + 1}: loss, |TD|, reward mean {got.tolist()} against the "
+              f"recorded {want.tolist()}")
+        gaps["loss"] = max(gaps["loss"], float(err[:2].max()))
+        losses.append(got[0])
+        named = list(state.params.named_parameters())
+        opt = state.opt_state
+        mu = f.learner_samples({n: opt.state[p]["exp_avg"].cpu().numpy() for n, p in named})
+        change = f.learner_samples({n: p.detach().cpu().numpy() - start[n] for n, p in named})
+        for leaf in mu:
+            g_mu = _rel_gap(mu[leaf], d[f"train_mu_{leaf}"][t])
+            g_ch = _rel_gap(change[leaf], d[f"train_change_{leaf}"][t])
+            check(g_mu < (LEARNER_GRAD_REL if t == 0 else LEARNER_DRIFT_REL),
+                  f"sharded train step {t + 1}: Adam's first moment of {leaf} differs from the "
+                  f"recorded JAX run by a relative norm of {g_mu:.4f}")
+            check(g_ch < LEARNER_DRIFT_REL, f"sharded train step {t + 1}: the change of {leaf} "
+                                            f"differs from the recorded JAX run by {g_ch:.4f}")
+            moment = "grad" if t == 0 else "mu"
+            gaps[moment], gaps["change"] = max(gaps[moment], g_mu), max(gaps["change"], g_ch)
+    got = state_to_numpy(state.env_states)
+    for name in ("colour", "kind", "timer", "key"):
+        check(np.array_equal(got[name], d[f"train_{name}"].astype(got[name].dtype)),
+              f"sharded train step: final env {name} differs from the recorded JAX run")
+    check(np.array_equal(state.eff_mask.cpu().numpy(), d["train_eff_mask"]),
+          "sharded train step: final mask differs from the recorded JAX run")
+
+    # make_dqn's unsharded step from the same weights and keys
+    init_fn, train_step, _ = dqn.make_dqn(_dqn_cfg(), batch_size=f.DQN_BATCH, hidden=f.DQN_HIDDEN,
+                                          eps_start=1.0, eps_end=1.0, device=device)
+    plain = init_fn(keys[0])
+    plain.params.load_state_dict(dqn.params_from_flax(tree))
+    dqn.sync_target(plain.target_params, plain.params)
+    for t in range(f.SHARDED_TRAIN_STEPS):
+        plain, metrics = train_step(plain, keys[t + 1])
+        check(float(metrics["loss"]) == losses[t],
+              f"sharded train step {t + 1}: loss {losses[t]} against make_dqn's "
+              f"{float(metrics['loss'])}")
+    for name in ("colour", "kind", "timer", "key"):
+        check(torch.equal(getattr(plain.env_states, name), getattr(state.env_states, name)),
+              f"sharded train step: env {name} differs from make_dqn's")
+    check(torch.equal(plain.eff_mask, state.eff_mask), "sharded train step: mask differs from make_dqn's")
+    for name, v in plain.params.state_dict().items():
+        check(torch.equal(v, state.params.state_dict()[name]),
+              f"sharded train step: weight {name} differs from make_dqn's")
+    return {"gaps": gaps, "state": state, "step": step}
+
+
+def train_ranks(tp: int, timed_steps: int, device_type: str = "cuda") -> dict:
+    """Phase 18b, in each rank of a (1, tp) mesh: the recorded two train
+    steps, then ``timed_steps`` more, timed.  Returns the losses, this
+    rank's weights after the two (numpy) and ms a step."""
+    import torch
+    import torch.distributed as dist
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.parallel import make_mesh
+
+    f = _fixture_tool()
+    mesh = make_mesh([device_type] * dist.get_world_size(), dp=1, tp=tp)
+    sync = torch.cuda.synchronize if device_type == "cuda" else (lambda: None)
+    state, step, keys, _ = _sharded_trainer(mesh, f)
+    losses = []
+    for k in keys[1:]:
+        state, metrics = step(state, k)
+        losses.append(float(metrics["loss"]))
+    # a copy: on the CPU, numpy() shares the weights the timed steps change
+    params = {n: v.detach().cpu().numpy().copy() for n, v in state.params.state_dict().items()}
+    key = keys[-1]
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        key, k = trandom.split(key)
+        state, metrics = step(state, k)
+    sync()
+    return {"losses": losses, "params": params, "tp_rank": mesh.get_local_rank("tp"),
+            "ms": (time.perf_counter() - t0) * 1e3 / timed_steps}
+
+
+def rollout_ranks(specials, batch, steps, seed, device_type: str = "cuda") -> dict:
+    """Phase 17, in each rank: ``sharded_run`` over every rank of the world
+    (dp = world size) on the shared card."""
+    import torch.distributed as dist
+
+    from tile_match_tpu_torch.parallel import make_mesh
+
+    n = dist.get_world_size()
+    mesh = make_mesh([device_type] * n, dp=n, tp=1)
+    _zero_launch_counts()
+    # on the CPU the wrappers run their plain versions: no launch to require
+    required = ("cascade_sp_chunk", "settled_mask_sp") if device_type == "cuda" else ()
+    run = sharded_run(_config(10, 10, 4, 30, specials), mesh, batch, steps, seed,
+                      f"phase 17 rank {dist.get_rank()}", required)
+    if dist.get_rank():
+        run.pop("boards")  # rank 0 brings the gathered boards back
+    return run
+
+
+def check_debug(device) -> dict:
+    """Phase 19a: ``debug.checked_step`` over the recorded config-3 fixture
+    boards (every step before the auto-reset: each next state equals the
+    recorded one, and no check fires); a painted board with two lines
+    raises ``lines_max overflow`` at ``max_lines=1``; a step cut at
+    ``max_cascades=0`` raises ``matches remain after step``.  Returns the
+    steps checked."""
+    import torch
+
+    from tile_match_tpu_torch import debug, engine
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from tile_match_tpu_torch.ops.lines import get_colour_lines
+
+    device = torch.device(device)
+    d = np.load(FIXTURE_CFG3)
+    R, C, K, moves = (int(v) for v in d["config"])
+    cfg = _config(R, C, K, moves, d["specials"])
+    fn = debug.checked_step(cfg)
+    state = state_from_numpy(d["colour"][0], d["kind"][0], d["timer"][0], d["key"][0], device)
+    for t in range(moves - 1):
+        state, _, done, _ = fn(state, torch.from_numpy(d["actions"][t].astype(np.int64)).to(device))
+        got = state_to_numpy(state)
+        for name in ("colour", "kind", "timer", "key"):
+            check(np.array_equal(got[name], d[name][t + 1].astype(got[name].dtype)),
+                  f"checked_step {t}: {name} differs from the recorded JAX rollout")
+        check(not bool(done.any()), f"checked_step {t}: a board is done before the last move")
+
+    r = np.arange(5)[:, None]
+    c = np.arange(5)[None, :]
+    colour = (((r % 2) * 2 + (c % 2)) % 3 + 1).astype(np.int32)
+    colour[2:5, 0] = 4
+    colour[2:5, 2] = 4
+    painted = dataclasses.replace(_config(5, 5, 4, 30, ALL_SPECIALS), max_lines=1, debug_checks=True)
+    try:
+        get_colour_lines(painted, torch.from_numpy(colour)[None].to(device))
+        raise AssertionError("no error")
+    except RuntimeError as e:
+        check("lines_max overflow: 2 detected lines exceed capacity 1" in str(e),
+              f"debug_checks: the painted board raised {e!r}")
+
+    cut = dataclasses.replace(_config(5, 5, 3, 10), max_cascades=0)
+    states, info = engine.reset(cut, trandom.split(trandom.PRNGKey(0, device), 4))
+    action = info.effective_actions.to(torch.int64).argmax(-1)
+    try:
+        debug.checked_step(cut)(states, action)
+        raise AssertionError("no error")
+    except RuntimeError as e:
+        check("matches remain after step" in str(e), f"checked_step: the cut cascade raised {e!r}")
+    return {"steps": moves - 1, "boards": int(d["colour"].shape[1])}
+
+
+def scale_out(device, smi) -> None:
+    """Phases 16-19, each path's launches on its own phase lines."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from tile_match_tpu_torch import profiling
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.entry import dryrun_multichip
+    from tile_match_tpu_torch.parallel import initialize_distributed, launch, make_mesh
+
+    # 16. world size 1 over NCCL
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    check(initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl"),
+          "phase 16: initialize_distributed did not start a group")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase 16: not a one-rank NCCL group")
+        mesh = make_mesh([device], dp=1, tp=1)
+        _zero_launch_counts()
+        counts = replay_sharded_rollout(mesh)
+        print(f"phase 16 ok: one-rank NCCL group; sharded_rollout replayed the recorded JAX "
+              f"sharded_rollout (config 3, 64 boards, 8 steps) bit for bit: rewards, every state "
+              f"leaf, stats; launches {counts}")
+        runs = {}
+        for name, specials, required in (("config 1", (0, 0, 0, 0), ("fused_cascade",)),
+                                         ("config 3", ALL_SPECIALS,
+                                          ("cascade_sp_chunk", "settled_mask_sp"))):
+            _zero_launch_counts()
+            runs[name] = run = sharded_run(_config(10, 10, 4, 30, specials), mesh, MAIN_BATCH,
+                                           SCALE_STEPS, SEED, f"phase 16 {name}", required)
+            print(f"phase 16 ok: {name} B={MAIN_BATCH} {SCALE_STEPS} steps on one rank: "
+                  f"{run['board_steps_per_s']:.1f} board-steps/s, launches a step "
+                  f"{run['launches_per_step']}, in all with the reset {run['launches']} ({smi})")
+        # config 1's step takes its settled mask from K1; K3 computes the reset's
+        check(runs["config 1"]["launches"]["settled_mask_sp"] > 0,
+              "phase 16 config 1: K3 did not run at the reset")
+
+        # 17. two ranks sharing the card over gloo
+        outs = launch(2, rollout_ranks, ALL_SPECIALS, MAIN_BATCH, SCALE_STEPS, SEED,
+                      backend="gloo", timeout=600)
+        one = runs["config 3"]
+        for name, want in one["boards"].items():
+            check(np.array_equal(outs[0]["boards"][name], want),
+                  f"phase 17: dp=2 {name} differs from the one-rank run")
+        for name in ("steps_done", "trips_sum"):
+            check(np.array_equal(outs[0]["stats"][name], one["stats"][name]),
+                  f"phase 17: dp=2 stats {name} differ from the one-rank run")
+        for rank, o in enumerate(outs):
+            print(f"phase 17: rank {rank} of 2 (gloo, one card): {o['board_steps_per_s']:.1f} "
+                  f"board-steps/s, launches a step {o['launches_per_step']} ({smi})")
+        t0 = time.perf_counter()
+        dryrun_multichip(2)
+        print(f"phase 17 ok: dp=2 over gloo on one card equals the one-rank run board for board "
+              f"(config 3, B={MAIN_BATCH}, {SCALE_STEPS} steps); dryrun_multichip(2) passed in "
+              f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+        # 18. the sharded train step
+        _zero_launch_counts()
+        rec = replay_sharded_train(mesh)
+        counts = _launch_counts()
+        state, step = rec["state"], rec["step"]
+        key = trandom.PRNGKey(SEED, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SCALE_TRAIN_STEPS):
+            key, k = trandom.split(key)
+            state, metrics = step(state, k)
+        torch.cuda.synchronize()
+        ms1 = (time.perf_counter() - t0) * 1e3 / SCALE_TRAIN_STEPS
+        print(f"phase 18 ok: sharded_train_step (1, 1) over NCCL replayed two recorded JAX steps "
+              f"(config 1, B=256, hidden 512): env side bit for bit, gaps {rec['gaps']}; "
+              f"launches {counts}; {ms1:.3f} ms a step over {SCALE_TRAIN_STEPS} ({smi})")
+        f = _fixture_tool()
+        one_rank = launch(1, train_ranks, 1, SCALE_TRAIN_STEPS, backend="gloo", timeout=600)[0]
+        two = launch(2, train_ranks, 2, SCALE_TRAIN_STEPS, backend="gloo", timeout=600)
+        whole = _whole_params([o["params"] for o in sorted(two, key=lambda o: o["tp_rank"])])
+        ref = one_rank["params"]
+        tree = f.seeded_qnet_params(ref["dense1.weight"].shape[1], f.DQN_HIDDEN,
+                                    ref["head.weight"].shape[0], f.QNET_SEED)
+        seeded = f.port_leaves(tree)
+        worst = 0.0
+        for name in ref:
+            gap = _rel_gap(whole[name] - seeded[name], ref[name] - seeded[name])
+            check(gap < LEARNER_DRIFT_REL, f"phase 18: (1, 2) change of {name} differs from (1, 1) "
+                                           f"by a relative norm of {gap:.4f}")
+            worst = max(worst, gap)
+        for t, (a, b) in enumerate(zip(two[0]["losses"], one_rank["losses"])):
+            check(abs(a - b) / abs(b) < 5e-2, f"phase 18: (1, 2) loss {a} against (1, 1) {b} at "
+                                              f"step {t + 1}")
+        print(f"phase 18 ok: (dp, tp) = (1, 2) on one card over gloo: losses {two[0]['losses']} "
+              f"against (1, 1)'s {one_rank['losses']}, largest leaf change gap {worst:.5f}; "
+              f"ms a step: (1, 1) {one_rank['ms']:.3f}, (1, 2) ranks "
+              f"{[round(o['ms'], 3) for o in two]} ({smi})")
+    finally:
+        dist.destroy_process_group()
+
+    # 19. checked_step and measure_throughput
+    _zero_launch_counts()
+    n = check_debug(device)
+    print(f"phase 19 ok: checked_step passed {n['steps']} recorded config-3 steps of {n['boards']} "
+          f"boards bit for bit; a painted max_lines=1 board raised lines_max overflow on the card, "
+          f"a max_cascades=0 step raised matches remain; launches {_launch_counts()}")
+    _zero_launch_counts()
+    out = profiling.measure_throughput(_config(10, 10, 4, 30), batch_size=MAIN_BATCH)
+    check(out["steps_per_sec"] > 0 and out["device"] == torch.cuda.get_device_name(0),
+          "phase 19: measure_throughput")
+    print(f"phase 19: measure_throughput config 1 B={MAIN_BATCH}: {json.dumps(out)} "
+          f"launches {_launch_counts()} ({smi})")
+    print("phase 19 ok")
+
+
+def _whole_params(shards) -> dict:
+    """A whole network's weights from its tp shards (numpy), in tp order."""
+    out = dict(shards[0])
+    for name, dim in (("dense1.weight", 0), ("dense1.bias", 0), ("dense2.weight", 1)):
+        out[name] = np.concatenate([s[name] for s in shards], dim)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1206,6 +1646,10 @@ def main() -> int:
     # 9-15. the training path
     with plain_mask_refused():
         training_path(device, smi)
+
+    # 16-19. the scale-out layer, debug checks and throughput
+    with plain_mask_refused():
+        scale_out(device, smi)
 
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

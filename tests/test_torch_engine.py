@@ -114,9 +114,9 @@ def test_gave_up_boards_match_jax():
     assert_info(tout[3], jout[3], "step")
 
 
-def test_specials_and_debug_checks_are_not_ported():
+def test_every_special_set_runs():
     """Every special set runs, without the bomb too (K2's no-bomb case
-    table); debug_checks is the one option not ported."""
+    table)."""
     keys = trandom.split(trandom.PRNGKey(0, "cpu"), 2)
     te.reset(EnvConfig.create(6, 6, 4), keys)
     no_bomb = EnvConfig.create(6, 6, 4, colour_specials=("vertical_laser", "horizontal_laser"))
@@ -125,8 +125,6 @@ def test_specials_and_debug_checks_are_not_ported():
     acts = info.effective_actions.to(torch.int64).argmax(-1)
     _, reward, _, _ = te.step(no_bomb, state, acts, eff_mask=info.effective_actions)
     assert (reward > 0).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        te.reset(cfgs(0, debug_checks=True)[1], keys)
 
 
 def test_port_imports_without_jax():
@@ -145,6 +143,12 @@ def test_port_imports_without_jax():
         "import tile_match_tpu_torch.parity, tile_match_tpu_torch.envs._threefry_driver\n"
         "import tile_match_tpu_torch.envs.gym_env, tile_match_tpu_torch.envs.spaces\n"
         "import tile_match_tpu_torch.wrappers, tile_match_tpu_torch.rendering.pygame_renderer\n"
+        "import tile_match_tpu_torch.parallel, tile_match_tpu_torch.parallel.sharding\n"
+        "import tile_match_tpu_torch.debug, tile_match_tpu_torch.profiling\n"
+        "import tile_match_tpu_torch.utils, tile_match_tpu_torch.native\n"
+        "import tile_match_tpu_torch.examples.random_baseline, tile_match_tpu_torch.examples.play\n"
+        "import tile_match_tpu_torch.examples.q_learning_sweep, tile_match_tpu_torch.examples.dqn_train\n"
+        "import tile_match_tpu_torch.examples.scaling\n"
         "assert not any(m.startswith('tile_match_tpu.') or m == 'tile_match_tpu' for m in sys.modules)\n"
         "print('imported')\n"
     )

@@ -4,8 +4,10 @@ PyTorch, with its TPU kernels rewritten as CUDA kernels for Hopper.
 Same configs, boards and threefry keys give the same outputs as the JAX
 package, bit for bit.  This package imports no JAX.  Ported: the batched
 step and env of every special set, with the three TPU kernels as CUDA
-kernels, and the Gymnasium adapter ``envs.gym_env.TileMatchEnv`` in both
-RNG modes.
+kernels, the Gymnasium adapter ``envs.gym_env.TileMatchEnv`` in both RNG
+modes, the agents (``models``), the scale-out layer (``parallel``),
+``debug``, ``profiling``, ``utils``, the C++ engine's loader (``native``)
+and the examples.
 
 The adapter is registered with gymnasium as ``TileMatchTorch-v0``.
 Importing this package does not import gymnasium: the id is registered

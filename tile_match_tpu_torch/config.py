@@ -64,7 +64,11 @@ class EnvConfig:
     max_lines: int = 0  # 0 -> auto; override of lines_max
     max_stack: int = 0  # 0 -> auto; override of stack_max
 
-    # Capacity-cap checks of the specials machinery (not ported yet).
+    # When True, every capacity-cap truncation point of the specials
+    # machinery (line queue, classify append and emission, activation stack
+    # and step budget) raises a RuntimeError instead of truncating; the
+    # checks read one flag back from the device each (see
+    # ``debug.checked_step``).
     debug_checks: bool = False
 
     @classmethod

@@ -43,14 +43,6 @@ from .ops.resolve import resolve_colour_matches
 from .state import EnvState, StepInfo, action_table
 
 
-def _check_supported(cfg: EnvConfig) -> None:
-    if cfg.debug_checks:
-        raise NotImplementedError(
-            "debug_checks is not ported yet (ROADMAP Queue 1 item 9, gates "
-            "and telemetry)"
-        )
-
-
 def _split_where(go: torch.Tensor, key: torch.Tensor):
     """``key, sub = split(key)`` on the boards where ``go``; the others keep
     their key.  Returns (new key, sub)."""
@@ -122,7 +114,6 @@ def generate_board(cfg: EnvConfig, keys):
     """Fresh all-normal boards, redrawn and shuffled until line-free with at
     least one effective move (`board.py:95-112`).  Returns (colour, kind,
     key, mask, gave_up)."""
-    _check_supported(cfg)
     both = trandom.split(keys)
     key, k = both[:, 0], both[:, 1]
     colour = draw_colour_grid(k, cfg)
@@ -269,7 +260,6 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
     Returns (colour, kind, key, eliminations, is_comb, new_specials,
     activated, shuffled, post_mask, truncated, trips).
     """
-    _check_supported(cfg)
     B = colour.shape[0]
     dev = colour.device
     e1, e3 = eff[:, None], eff[:, None, None]

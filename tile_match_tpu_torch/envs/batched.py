@@ -32,10 +32,13 @@ class TimeStep:
     info: StepInfo
 
 
-def batched_reset(cfg: EnvConfig, key, batch_size: int) -> Tuple[EnvState, TimeStep]:
+def batched_reset(
+    cfg: EnvConfig, key, batch_size: int, offset: int = 0
+) -> Tuple[EnvState, TimeStep]:
     """Reset ``batch_size`` boards from one key int64[2]: board b starts from
-    ``split(key, batch_size)[b]``."""
-    states, infos = reset(cfg, trandom.split(key, batch_size))
+    ``split(key, batch_size)[b]``, or with ``offset`` from key ``offset + b``
+    of a larger split (a rank's slice of a global batch)."""
+    states, infos = reset(cfg, trandom.split(key, batch_size, offset))
     ts = TimeStep(
         obs_board=states.board,
         obs_moves_left=cfg.num_moves - states.timer,
@@ -91,13 +94,15 @@ def batched_step(
     return next_states, ts
 
 
-def random_effective(key, ts: TimeStep) -> torch.Tensor:
+def random_effective(key, ts: TimeStep, offset: int = 0) -> torch.Tensor:
     """A uniform draw among each board's effective actions, action 0 where
     a board has none: ``jax.random.categorical`` over the masked logits
-    from one key int64[2], as the JAX ``rollout``'s default policy draws."""
+    from one key int64[2], as the JAX ``rollout``'s default policy draws.
+    ``offset``: the global index of the first board, where these are a
+    rank's rows of a larger batch."""
     mask = ts.info.effective_actions
     logits = torch.where(mask, 0.0, -torch.inf)
-    acts = trandom.categorical(key, logits, axis=-1)
+    acts = trandom.categorical(key, logits, axis=-1, offset=offset * mask.shape[-1])
     return torch.where(mask.any(-1), acts, 0).to(torch.int32)
 
 

@@ -21,10 +21,11 @@ host-side numbers, so a train step reads nothing back from the card.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -87,21 +88,69 @@ def _features(board_planes: torch.Tensor, moves_left: torch.Tensor) -> torch.Ten
     return torch.cat([x, ml], dim=-1)
 
 
+class _SumOverTP(torch.autograd.Function):
+    """``all_reduce`` sum over a tp group.  The gradient passes through
+    unchanged: the output is replicated over tp, so each tp rank already
+    holds the whole gradient of each partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class QNetwork(nn.Module):
     """MLP over flattened one-hot planes + the moves-left scalar: two
     hidden layers in bfloat16 (float32 parameters), the head in float32 on
-    the bfloat16 activations."""
+    the bfloat16 activations.
 
-    def __init__(self, num_actions: int, hidden: int = 512, *, in_features: int, device=None):
+    With ``tp`` > 1 the hidden layers are one rank's shard of a tp group
+    (``parallel.sharded_train_step``), h = hidden / tp: ``dense1`` is
+    column-parallel (rows ``[t*h, (t+1)*h)`` of its weight and bias for tp
+    rank t), ``dense2`` row-parallel (the same columns of its weight).
+    dense2's partial products are summed over ``tp_group`` by one
+    ``all_reduce`` and its bias is added once.  The head is replicated.
+    ``shard_state_dict`` cuts a whole network's weights to this layout."""
+
+    def __init__(self, num_actions: int, hidden: int = 512, *, in_features: int, tp: int = 1,
+                 tp_group=None, device=None):
         super().__init__()
-        self.dense1 = Dense(in_features, hidden, torch.bfloat16, device)
-        self.dense2 = Dense(hidden, hidden, torch.bfloat16, device)
+        if hidden % tp:
+            raise ValueError(f"hidden {hidden} not divisible by tp={tp}")
+        self.dense1 = Dense(in_features, hidden // tp, torch.bfloat16, device)
+        self.dense2 = Dense(hidden // tp, hidden, torch.bfloat16, device)
         self.head = Dense(hidden, num_actions, torch.float32, device)
+        self.tp, self.tp_group = tp, tp_group
 
     def forward(self, board_planes: torch.Tensor, moves_left: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.dense1(_features(board_planes, moves_left)))
-        x = F.relu(self.dense2(x))
+        x = F.relu(self.dense2(x) if self.tp == 1 else self._dense2_over_tp(x))
         return self.head(x)
+
+    def _dense2_over_tp(self, x: torch.Tensor) -> torch.Tensor:
+        d2 = self.dense2
+        # products of bfloat16 operands, exact in float32; the sum over tp
+        # and the bias round to bfloat16 once
+        y = F.linear(x.to(d2.dtype).float(), d2.weight.to(d2.dtype).float())
+        y = _SumOverTP.apply(y, self.tp_group) + d2.bias.to(d2.dtype).float()
+        return y.to(d2.dtype)
+
+
+def shard_state_dict(state_dict: dict, tp_rank: int, tp: int) -> dict:
+    """A whole ``QNetwork``'s state dict (weights [out, in]) cut to tp rank
+    ``tp_rank``'s shard of the tp layout."""
+    h = state_dict["dense1.weight"].shape[0] // tp
+    rows = slice(tp_rank * h, (tp_rank + 1) * h)
+    out = dict(state_dict)
+    out["dense1.weight"] = state_dict["dense1.weight"][rows]
+    out["dense1.bias"] = state_dict["dense1.bias"][rows]
+    out["dense2.weight"] = state_dict["dense2.weight"][:, rows]
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def init_params(net: nn.Module, key: torch.Tensor) -> nn.Module:
@@ -159,21 +208,39 @@ class DQNState(NamedTuple):
     step_count: int
 
 
+class Layout(NamedTuple):
+    """One rank's part of a train step laid out over ranks
+    (``parallel.sharded_train_step`` builds it): the boards ``[first,
+    first + boards)`` of the global batch, with their words of every draw;
+    tp rank ``tp_rank`` of ``tp`` of the network (``QNetwork``'s tp
+    layout); and ``dp_mean``, the mean of a tensor over the data-parallel
+    ranks, applied to the gradients and the metrics (None: one rank)."""
+
+    first: int
+    boards: int
+    tp: int = 1
+    tp_rank: int = 0
+    tp_group: Any = None
+    dp_mean: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+
 def _encode(cfg: EnvConfig, states: EnvState):
     return one_hot_board(cfg, states.board), cfg.num_moves - states.timer
 
 
-def act_greedy_or_random(q, eff_mask, key, epsilon) -> torch.Tensor:
+def act_greedy_or_random(q, eff_mask, key, epsilon, offset: int = 0) -> torch.Tensor:
     """Epsilon-greedy over the effective actions: greedy over the masked
     Q, else a uniform draw among the effective actions; action 0 where a
     board has none.  ``key, k_eps, k_rand`` as the JAX ``act_fn`` splits
-    them."""
+    them.  ``offset``: the global index of the first board, where these
+    are a rank's rows of a larger batch (its words of both draws)."""
     any_eff = eff_mask.any(-1)
     greedy = torch.where(any_eff, torch.where(eff_mask, q, -torch.inf).argmax(-1), 0)
     k_eps, k_rand = trandom.split(key)
     logits = torch.where(eff_mask, 0.0, -torch.inf)
-    random_eff = torch.where(any_eff, trandom.categorical(k_rand, logits, axis=-1), 0)
-    explore = trandom.uniform(k_eps, greedy.shape) < epsilon
+    draw = trandom.categorical(k_rand, logits, axis=-1, offset=offset * logits.shape[-1])
+    random_eff = torch.where(any_eff, draw, 0)
+    explore = trandom.uniform(k_eps, greedy.shape, offset=offset) < epsilon
     return torch.where(explore, random_eff, greedy).to(torch.int32)
 
 
@@ -214,22 +281,33 @@ def make_dqn(
     eps_end: float = 0.05,
     eps_decay_steps: int = 10_000,
     device=None,
+    layout: Layout | None = None,
 ):
     """Returns (init_fn, train_step, act_fn), on ``device`` (the card by
     default; raises without one).
 
     train_step(state, key): one env step for the whole batch + one
     Q-learning update on the freshly collected transitions (online DQN).
+    ``layout``: this rank's part of a step over ranks (default: all of
+    it); ``init_fn`` draws the whole network and keeps this rank's shard.
     """
     device = resolve_device(device)
+    layout = layout or Layout(0, batch_size)
+
+    def make_net(tp=layout.tp):
+        return QNetwork(cfg.num_actions, hidden, in_features=input_size(cfg), tp=tp,
+                        tp_group=layout.tp_group, device=device)
 
     def init_fn(key) -> DQNState:
         k = trandom.split(key.to(device), 3)
-        env_states, ts = batched_reset(cfg, k[1], batch_size)
+        env_states, ts = batched_reset(cfg, k[1], layout.boards, offset=layout.first)
         planes, moves = _encode(cfg, env_states)
-        net = QNetwork(cfg.num_actions, hidden, in_features=input_size(cfg), device=device)
-        init_params(net, k[2])
-        target = QNetwork(cfg.num_actions, hidden, in_features=input_size(cfg), device=device)
+        net = init_params(make_net(tp=1), k[2])
+        if layout.tp > 1:
+            shard = shard_state_dict(net.state_dict(), layout.tp_rank, layout.tp)
+            net = make_net()
+            net.load_state_dict(shard)
+        target = make_net()
         sync_target(target, net)
         return DQNState(
             params=net,
@@ -245,7 +323,7 @@ def make_dqn(
     def act_fn(params, planes, moves, eff_mask, key, epsilon):
         with torch.no_grad():
             q = params(planes, moves)
-        return act_greedy_or_random(q, eff_mask, key, epsilon)
+        return act_greedy_or_random(q, eff_mask, key, epsilon, offset=layout.first)
 
     def loss_fn(params, target_params, batch):
         planes, moves, actions, rewards, dones, nplanes, nmoves, neff = batch
@@ -272,6 +350,11 @@ def make_dqn(
         opt.zero_grad(set_to_none=True)
         loss, td = loss_fn(state.params, state.target_params, batch)
         loss.backward()
+        if layout.dp_mean is not None:
+            params = list(state.params.parameters())
+            grads = layout.dp_mean(torch.cat([p.grad.reshape(-1) for p in params]))
+            for p, g in zip(params, grads.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
         opt.step()
         if state.step_count % target_period == 0:
             sync_target(state.target_params, state.params)
@@ -282,10 +365,13 @@ def make_dqn(
             eff_mask=ts.info.effective_actions,
             step_count=state.step_count + 1,
         )
+        loss, reward_mean = loss.detach(), rewards.mean()
+        if layout.dp_mean is not None:
+            loss, td, reward_mean = layout.dp_mean(torch.stack([loss, td, reward_mean]))
         metrics = {
-            "loss": loss.detach(),
+            "loss": loss,
             "td_abs": td,
-            "reward_mean": rewards.mean(),
+            "reward_mean": reward_mean,
             "epsilon": torch.tensor(epsilon, dtype=torch.float32),
         }
         return new_state, metrics

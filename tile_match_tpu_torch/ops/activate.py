@@ -179,6 +179,11 @@ def machine_step(cfg: EnvConfig, st: Machine, go: torch.Tensor) -> Machine:
     skind = kind.reshape(B, R * C)[bi, (sr.clamp(0, R - 1) * C + sc.clamp(0, C - 1)).long()]
     child_counted = is_real.to(torch.int32)  # maskscan / bomb2 children are uncounted
     do_push = scan & found
+    if cfg.debug_checks:
+        full = do_push & (sp2 >= cfg.stack_max)
+        if bool(full.any()):
+            d = int(sp2[full][0])
+            raise RuntimeError(f"stack_max overflow: activation frame dropped at depth {d}")
     f_idx[bi, top] = torch.where(do_push, first_ord + 1, f_idx[bi, top])
     st2 = dataclasses.replace(
         st, colour=colour, kind=kind, count=count, f_idx=f_idx, f_col=f_col, sp=sp2
@@ -194,4 +199,8 @@ def run_machine(cfg: EnvConfig, st: Machine) -> Machine:
         if not bool(go.any()):
             break
         st = machine_step(cfg, st, go)
-    return dataclasses.replace(st, ovf=st.ovf | (st.sp > 0))
+    live = st.sp > 0
+    if cfg.debug_checks and bool(live.any()):
+        n = int(st.sp[live][0])
+        raise RuntimeError(f"activation_steps_max exceeded: chain truncated with {n} frames live")
+    return dataclasses.replace(st, ovf=st.ovf | live)

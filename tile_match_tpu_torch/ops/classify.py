@@ -149,7 +149,10 @@ def _pop_machine(cfg, colour, lo, lc, ll, bmask, KSPAN):
 
         # cookie remainder re-queued after every queued line
         rem_len = n - 5
-        movf = movf | (cookie_case & (rem_len > 2) & (atail >= LM2))
+        dropped = cookie_case & (rem_len > 2) & (atail >= LM2)
+        if cfg.debug_checks and bool(dropped.any()):
+            raise RuntimeError("classify queue overflow: cookie remainder dropped")
+        movf = movf | dropped
         do_append = cookie_case & (rem_len > 2) & (atail < LM2)
         rem_live = jj[None, :] < rem_len[:, None]
         rem = torch.where(rem_live[..., None], line[:, (jj + 5).clamp(max=L - 1)], -1)
@@ -309,6 +312,8 @@ def process_colour_lines(cfg: EnvConfig, colour: torch.Tensor, lineset: LineSet)
     cat_colour = torch.cat(lev["colour"] + [mcol], 1)
     cat_coords = torch.cat(lev["coords"] + [mc], 1)
     emit_ovf = (cat_key < BIG).sum(-1) > MM
+    if cfg.debug_checks and bool(emit_ovf.any()):
+        raise RuntimeError("classify emission overflow: more than MM live matches")
     sk, perm = torch.sort(cat_key, dim=-1, stable=True)
     live = sk[:, :MM] < BIG
     perm = perm[:, :MM]

@@ -223,6 +223,9 @@ def get_colour_lines(cfg: EnvConfig, colour: torch.Tensor) -> LineSet:
 
     n_ext_all = (e_ord < BIG).sum(-1, dtype=torch.int32)
     ovf = n_primary + n_ext_all > LM
+    if cfg.debug_checks and bool(ovf.any()):
+        n = int((n_primary + n_ext_all)[ovf][0])
+        raise RuntimeError(f"lines_max overflow: {n} detected lines exceed capacity {LM}")
 
     # the first LM extension candidates by key (live keys are distinct)
     e_sorted, perm = torch.sort(e_ord, dim=-1, stable=True)

@@ -1,7 +1,17 @@
-"""Profile the PyTorch port's batched step on one CUDA card (counterpart of
+"""Tracing and throughput of the PyTorch port (counterpart of
 ``tile_match_tpu.profiling``, on ``torch.profiler``).
 
-    python -m tile_match_tpu_torch.profiling [--config 3] [--no-bomb] [--batch 16384] [--steps 10] [--dqn]
+``trace(logdir)`` is a ``torch.profiler`` context that writes a Chrome
+trace into ``logdir`` (a no-op for ``None``); ``measure_throughput`` times
+the batched step under the random effective policy, keyed as the JAX
+package's.  As a CLI, with the JAX package's flags:
+
+    python -m tile_match_tpu_torch.profiling --rows 10 --cols 10 --colours 4 \
+        --batch 1024 --steps 32 [--reps 3] [--no-specials] [--trace DIR] [--device cpu]
+
+prints ``measure_throughput``'s JSON.  The step's profile on the card:
+
+    python -m tile_match_tpu_torch.profiling --profile [--config 3] [--no-bomb] [--batch 16384] [--steps 10] [--dqn]
 
 Builds config ``--config`` of ``bench.py`` (0-4), without the bomb with
 ``--no-bomb`` (K2's no-bomb case table), resets a batch, runs 4
@@ -28,6 +38,8 @@ limit head the output.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import subprocess
 import sys
 import time
@@ -58,15 +70,131 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+@contextlib.contextmanager
+def trace(logdir: str | None):
+    """``torch.profiler`` trace context writing a Chrome trace
+    (``*.pt.trace.json``) into ``logdir``; a no-op when logdir is None.
+    Traces the card's kernels too where there is a card."""
+    if logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
+
+
+def measure_throughput(
+    cfg,
+    batch_size: int = 1024,
+    num_steps: int = 32,
+    reps: int = 3,
+    seed: int = 0,
+    logdir: str | None = None,
+    device=None,
+) -> dict:
+    """Board-steps/s of the batched step under the random effective policy
+    (``device``: the card unless the caller names another).
+
+    The JAX package's loop and draws: boards reset from ``PRNGKey(seed)``,
+    the policy keyed from ``PRNGKey(seed + 1)`` (``key, ka = split(key)``
+    each step), one warm-up step, then ``reps`` timed runs of ``num_steps``
+    steps, each ended by a device synchronisation.  Returns the best rate,
+    the sizes, each run's seconds and the device's name."""
+    import torch
+
+    from . import random as trandom
+    from .envs.batched import batched_reset, batched_step, random_effective
+    from .parity import resolve_device
+
+    device = resolve_device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def step_random(states, ts, key):
+        key, ka = trandom.split(key)
+        acts = random_effective(ka, ts)
+        states, ts = batched_step(cfg, states, acts, eff_mask=ts.info.effective_actions)
+        return states, ts, key
+
+    states, ts = batched_reset(cfg, trandom.PRNGKey(seed, device), batch_size)
+    key = trandom.PRNGKey(seed + 1, device)
+    states, ts, key = step_random(states, ts, key)
+    sync()
+
+    best, times = 0.0, []
+    with trace(logdir):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(num_steps):
+                states, ts, key = step_random(states, ts, key)
+            sync()
+            dt = time.perf_counter() - t0
+            times.append(dt)
+            best = max(best, batch_size * num_steps / dt)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+    return {
+        "steps_per_sec": best,
+        "batch_size": batch_size,
+        "num_steps": num_steps,
+        "times": times,
+        "device": name,
+    }
+
+
+def main(argv=None) -> int:
+    """The JAX package's throughput CLI; with ``--profile``, the step's
+    profile on the card."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--profile" in argv:
+        argv.remove("--profile")
+        return profile_step(argv)
+    from .config import EnvConfig
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--rows", type=int, default=10)
+    p.add_argument("--cols", type=int, default=10)
+    p.add_argument("--colours", type=int, default=4)
+    p.add_argument("--moves", type=int, default=30)
+    p.add_argument("--batch", type=int, default=1024)
+    p.add_argument("--steps", type=int, default=32)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--no-specials", action="store_true")
+    p.add_argument("--trace", type=str, default=None, help="profiler logdir")
+    p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    args = p.parse_args(argv)
+    cfg = EnvConfig(
+        args.rows,
+        args.cols,
+        args.colours,
+        args.moves,
+        cookie=not args.no_specials,
+        vertical_laser=not args.no_specials,
+        horizontal_laser=not args.no_specials,
+        bomb=not args.no_specials,
+    )
+    out = measure_throughput(
+        cfg, args.batch, args.steps, args.reps, logdir=args.trace, device=args.device
+    )
+    print(json.dumps(out))
+    return 0
+
+
+def profile_step(argv) -> int:
+    ap = argparse.ArgumentParser(description="profile the port's step on the card")
     ap.add_argument("--config", type=int, default=3)
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-bomb", action="store_true", help="drop the bomb from the config")
     ap.add_argument("--dqn", action="store_true",
                     help="profile the DQN train step in place of the env step")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function

@@ -14,6 +14,12 @@ A key is the pair of raw uint32 words JAX stores, held as int64 values in
 All arithmetic runs in int64 and is masked back to 32 bits after each add
 and shift (torch's ``>>`` on int32 is arithmetic, not logical).  Every
 function is batched over the leading dimensions of ``keys``.
+
+With ``jax_threefry_partitionable`` word ``i`` of a draw depends on its
+flat index ``i`` alone, so a slice of a draw is computed on its own:
+``split``, ``random_bits``, ``uniform`` and ``categorical`` take an
+``offset``, the flat index of their first word in the whole draw.  A rank
+that holds boards ``[o, o + b)`` of a batch draws exactly their words.
 """
 
 from __future__ import annotations
@@ -51,9 +57,16 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: int64[..., 2] -> int64[..., num, 2]."""
-    counts = torch.arange(num, dtype=torch.int64, device=keys.device)
+def _counters(n: int, offset: int, device) -> torch.Tensor:
+    if offset < 0 or offset + n > (1 << 32):
+        raise ValueError(f"counters [{offset}, {offset + n}) outside [0, 2**32)")
+    return torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+
+
+def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
+    """``jax.random.split``: int64[..., 2] -> int64[..., num, 2]; keys
+    ``[offset, offset + num)`` of a larger split."""
+    counts = _counters(num, offset, keys.device)
     b0, b1 = threefry2x32(
         keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
     )
@@ -70,9 +83,10 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element: int64[..., *shape] of uint32 values."""
-    counts = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device)
+def random_bits(keys: torch.Tensor, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
+    """32 random bits per element: int64[..., *shape] of uint32 values,
+    the words from flat index ``offset`` on."""
+    counts = _counters(math.prod(shape), offset, keys.device)
     b0, b1 = threefry2x32(
         keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
     )
@@ -102,7 +116,9 @@ def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> to
     return (minval + off).to(torch.int32)
 
 
-def uniform(keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(
+    keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0, offset: int = 0
+) -> torch.Tensor:
     """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: the
     top 23 bits of each word as the mantissa of a float in [1, 2), minus 1,
     scaled into [minval, maxval).
@@ -113,18 +129,21 @@ def uniform(keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0) ->
     once more; that equals the fused result except where the float64 sum
     lands on a float32 tie, which cannot happen for [0, 1) or [tiny, 1)."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (random_bits(keys, shape) >> 9) | 0x3F800000  # below 2**31
+    bits = (random_bits(keys, shape, offset) >> 9) | 0x3F800000  # below 2**31
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     scaled = (floats.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)
     return torch.clamp_min(scaled, float(lo))
 
 
-def categorical(keys: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+def categorical(
+    keys: torch.Tensor, logits: torch.Tensor, axis: int = -1, offset: int = 0
+) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis)`` with one key int64[2]:
     jax's default ``mode="low"`` Gumbel-max draw, the argmax of ``logits``
     plus ``-log(-log(u))`` for u uniform in [tiny, 1), one word per logit
-    counted in row-major order.  Returns int64 indices."""
-    u = uniform(keys, logits.shape, minval=np.finfo(np.float32).tiny, maxval=1.0)
+    counted in row-major order from ``offset`` (rows ``[o, o + b)`` of a
+    [B, A] draw: ``offset = o * A``).  Returns int64 indices."""
+    u = uniform(keys, logits.shape, minval=np.finfo(np.float32).tiny, maxval=1.0, offset=offset)
     return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=axis)
 
 

@@ -34,12 +34,24 @@ and TimeStep field of every step:
   moment and the weights' change from the seeded start at 512 entries of
   each leaf (``learner_samples``); and the flax ``QNetwork``'s Q on 64 of
   the final boards under the seeded weights.
+* ``tests/data/torch_port_fixture_sharded.npz``: the scale-out layer on a
+  one-device mesh.  ``parallel.sharded_rollout`` of config 3 at 64 boards
+  for 8 steps from ``PRNGKey(SHARDED_SEED)`` (per-board rewards, the final
+  state, the stats), and two ``parallel.sharded_train_step``s on config 1
+  at batch 256, hidden 512, epsilon held at 1, keys ``split(PRNGKey(
+  SHARDED_SEED), 3)`` (init, then a key a step), from the seeded weights:
+  each step's loss, mean |TD| and reward mean, Adam's first moment and the
+  weights' change at 512 entries of each leaf, and the final env state
+  and mask.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [NAME ...]
+
+writes every file, or those named (``cfg1``, ``cfg3``, ``nobomb``, ``dqn``,
+``gym``, ``sharded``).
 
 ``tests/test_torch_envs.py``, ``tests/test_torch_envs_sp.py``,
-``tests/test_torch_gym.py`` and ``tests/test_torch_models_fixture.py``
-replay the files through the port and check that this script still writes
+``tests/test_torch_gym.py``, ``tests/test_torch_models_fixture.py`` and
+``tests/test_torch_sharded_fixture.py`` replay the files through the port and check that this script still writes
 the same arrays; ``chip_smoke.py`` replays them on the card.
 """
 
@@ -89,6 +101,11 @@ Q_BOARDS = 64
 # the DQN run's learner: loss and |TD| every step; after these steps, Adam's
 # first moment and each weight's change from the seeded start, at
 # LEARNER_SAMPLES entries of each leaf drawn from LEARNER_SEED
+FIXTURE_SHARDED = os.path.join(ROOT, "tests", "data", "torch_port_fixture_sharded.npz")
+SHARDED_BATCH = 64
+SHARDED_STEPS = 8
+SHARDED_TRAIN_STEPS = 2
+SHARDED_SEED = 17
 LEARNER_STEPS = (1, 5, 40)
 LEARNER_SAMPLES = 512
 LEARNER_SEED = 13
@@ -363,20 +380,83 @@ def record_entry() -> dict:
     return out
 
 
-def main() -> None:
+def record_sharded() -> dict:
+    """The JAX package's sharded rollout (config 3) and two sharded DQN train
+    steps (config 1, seeded weights, epsilon 1) on a one-device mesh."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import jax
+
+    from tile_match_tpu.config import EnvConfig
+    from tile_match_tpu.parallel.sharding import make_mesh, sharded_rollout, sharded_train_step
+
+    mesh = make_mesh(jax.devices()[:1], dp=1, tp=1)
+    states, rew, stats = sharded_rollout(
+        EnvConfig.create(**CONFIG), mesh, SHARDED_BATCH, SHARDED_STEPS
+    )(jax.random.PRNGKey(SHARDED_SEED))
+    out = {
+        "rollout_reward": np.asarray(rew),
+        "rollout_colour": np.asarray(states.colour).astype(np.int8),
+        "rollout_kind": np.asarray(states.kind).astype(np.int8),
+        "rollout_timer": np.asarray(states.timer).astype(np.int8),
+        "rollout_key": np.asarray(states.key),
+        "rollout_steps_done": np.asarray(stats["steps_done"]),
+        "rollout_trips_sum": np.asarray(stats["trips_sum"]),
+        "rollout_shard_max_trips": np.asarray(stats["shard_max_trips"]),
+    }
+    cfg = dqn_config()
+    init, step = sharded_train_step(cfg, mesh, make_dqn_kwargs=dict(
+        batch_size=DQN_BATCH, hidden=DQN_HIDDEN, eps_start=1.0, eps_end=1.0))
+    keys = jax.random.split(jax.random.PRNGKey(SHARDED_SEED), SHARDED_TRAIN_STEPS + 1)
+    metrics, mu, change = [], [], []
+    with mesh:
+        state = init(keys[0])
+        params = seeded_qnet_params(int(np.prod(state.obs_planes.shape[1:])) + 1, DQN_HIDDEN,
+                                    cfg.num_actions, QNET_SEED)
+        seeded = jax.tree.map(jax.numpy.asarray, params)
+        state = state._replace(params=seeded, target_params=seeded)
+        start = port_leaves(params)
+        for k in keys[1:]:
+            state, m = step(state, k)
+            metrics.append([float(m[n]) for n in ("loss", "td_abs", "reward_mean")])
+            now = port_leaves(jax.tree.map(np.asarray, state.params))
+            mu.append(learner_samples(port_leaves(jax.tree.map(np.asarray, state.opt_state[0].mu))))
+            change.append(learner_samples({n: now[n] - start[n] for n in now}))
+    final = state.env_states
+    out.update({
+        "train_metrics": np.asarray(metrics, np.float32),
+        "train_colour": np.asarray(final.colour).astype(np.int8),
+        "train_kind": np.asarray(final.kind).astype(np.int8),
+        "train_timer": np.asarray(final.timer).astype(np.int8),
+        "train_key": np.asarray(final.key),
+        "train_eff_mask": np.asarray(state.eff_mask),
+    })
+    for name in mu[0]:
+        out[f"train_mu_{name}"] = np.stack([m[name] for m in mu])
+        out[f"train_change_{name}"] = np.stack([c[name] for c in change])
+    return out
+
+
+def main(names=None) -> None:
+    recorders = {
+        "cfg1": (FIXTURE, record),
+        "cfg3": (FIXTURE_CFG3, lambda: record(BATCH_CFG3, STEPS_CFG3, SPECIALS_CFG3)),
+        "nobomb": (FIXTURE_NOBOMB, lambda: record(BATCH_CFG3, STEPS_CFG3, SPECIALS_NOBOMB)),
+        "dqn": (FIXTURE_DQN, record_dqn),
+        "sharded": (FIXTURE_SHARDED, record_sharded),
+    }
+    names = names or [*recorders, "gym"]
     os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
-    for path, arrays in (
-        (FIXTURE, record()),
-        (FIXTURE_CFG3, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_CFG3)),
-        (FIXTURE_NOBOMB, record(BATCH_CFG3, STEPS_CFG3, SPECIALS_NOBOMB)),
-        (FIXTURE_DQN, record_dqn()),
-    ):
-        np.savez_compressed(path, **arrays)
+    for name in names:
+        if name == "gym":
+            with open(FIXTURE_GYM, "w") as f:
+                json.dump(record_gym(), f, separators=(",", ":"))
+            print(f"wrote {FIXTURE_GYM}: {os.path.getsize(FIXTURE_GYM)} bytes")
+            continue
+        path, fn = recorders[name]
+        np.savez_compressed(path, **fn())
         print(f"wrote {path}: {os.path.getsize(path)} bytes")
-    with open(FIXTURE_GYM, "w") as f:
-        json.dump(record_gym(), f, separators=(",", ":"))
-    print(f"wrote {FIXTURE_GYM}: {os.path.getsize(FIXTURE_GYM)} bytes")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -11,8 +11,10 @@ Phases, one line each or more; any failure exits non-zero:
      their registers and spills and the boards each keeps in flight per SM
      at 10x10 and 36x36;
   3. holds each kernel against its plain PyTorch version on the card, bit
-     for bit in every output — K1 fused_cascade at 10x10x4 B=16384, 5x5x3
-     B=1000, 20x20x6 B=1024 and 36x36x6 B=256 (1,296 cells); K2
+     for bit in every output — K1 fused_cascade at 10x10x4 B=16384 and
+     B=1000, 5x5x3 B=1000 and B=32768 (its warps-a-board variants below and
+     above 8,192 boards, at configs 0's and 1's bench batches too), 20x20x6
+     B=1024 and 36x36x6 B=256 (1,296 cells); K2
      cascade_sp_chunk and K3 settled_mask_sp at 10x10x4 B=16384, 6x6x3
      B=1000, 20x20x6 B=1024 and 36x36x6 B=256 on boards with sprinkled
      specials, and K2's no-bomb case table with K3 on its output at 10x10x4
@@ -27,9 +29,9 @@ Phases, one line each or more; any failure exits non-zero:
      sprinkled boards;
   4-8 run with the plain settled mask refused on CUDA tensors
      (``plain_mask_refused``): K3 computes every settled mask on the card;
-  4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg1,
-     _cfg3 and _nobomb.npz) through BatchedTileMatchEnv on the card, every
-     field;
+  4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg0
+     to _cfg4 and _nobomb.npz) through BatchedTileMatchEnv on the card
+     (``tools.parity_check.replay_fixture``), every field;
   5. runs config 1 (10x10, 4 colours, 30 moves, no specials) at batch 16384
      for 32 auto-resetting steps under a random effective policy, checks
      that K1 and K3 ran on every step, prints the launches a step, and
@@ -95,7 +97,23 @@ Phases, one line each or more; any failure exits non-zero:
   19. ``debug.checked_step`` over the recorded config-3 boards; a painted
      ``max_lines=1`` board raises on the card, as does a step cut at
      ``max_cascades=0``; ``profiling.measure_throughput`` on config 1 at
-     B=16384 prints its JSON.
+     B=16384 prints its JSON;
+  20. runs the port's bench (``python -m tile_match_tpu_torch.bench``) in
+     a process of its own for each of bench.py's five configs, on the
+     libraries phase 2 built: configs 1 and 3 at the bench's defaults,
+     configs 0, 2 and 4 cut to TMT_BENCH_STEPS=1 TMT_BENCH_REPS=1; each
+     must exit 0 after its parity gate (on configs 0-1 it also holds K1
+     against its plain version at the bench's batch), launch its path's
+     kernels (K1 on configs 0-1, K2 and K3 on configs 2-4) in the timed
+     windows and end
+     with bench.py's line (metric, value above 0, unit, vs_baseline); its
+     gate and window lines are echoed;
+  21. the gate tools on the card: ``tools.parity_check`` (every check;
+     it holds K1 against its plain version on the card, so the plain mask
+     runs there), then, with the plain settled mask refused again,
+     ``tools.kernel_coverage`` on config 3 (B=256, 30 steps) and
+     ``tools.truncation_audit`` on config 3 (B=4096, 32 steps, truncated
+     board-steps under 0.01%).
 The line before the last is the kernels' JSON record (``launches``: over
 the batched drives of phases 5-7, the main paths; the training path's
 launches stand on its phase lines, phases 10 and 12 a step); the last
@@ -117,9 +135,12 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg1.npz")
 FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
 FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
+# phase 4 replays every recorded batched rollout: bench.py's five configs
+# and config 3 without the bomb
+FIXTURES_BATCHED = tuple(os.path.join(ROOT, "tests", "data", f"torch_port_fixture_{name}.npz")
+                         for name in ("cfg0", "cfg1", "cfg2", "cfg3", "cfg4", "nobomb"))
 FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
 FIXTURE_DQN = os.path.join(ROOT, "tests", "data", "torch_port_fixture_dqn.npz")
 FIXTURE_SHARDED = os.path.join(ROOT, "tests", "data", "torch_port_fixture_sharded.npz")
@@ -131,6 +152,11 @@ KERNELS = {
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
+# K1 alone: (R, C, K, B); it takes four warps a board below 8,192 boards a
+# launch and one from there, so each variant runs at 5x5 and 10x10 (config
+# 0's bench batch is 32768, config 1's 16384)
+K1_SHAPES = ((10, 10, 4, 16384), (10, 10, 4, 1000), (5, 5, 3, 1000), (5, 5, 3, 32768),
+             (20, 20, 6, 1024), (36, 36, 6, 256))
 # the board shapes the kernels' libraries are built for in phase 2: they
 # take their shape at compile time, and 36x36 stands for every board above
 # 32 by 32 (one library whose geometry is read at run time)
@@ -161,6 +187,14 @@ MAIN_STEPS = 32
 # phases 16-17: steps of each sharded rollout; phase 18: timed train steps
 SCALE_STEPS = 8
 SCALE_TRAIN_STEPS = 20
+# phase 20: the port's bench, (config, TMT_BENCH_* environment); configs
+# 1 and 3 at the bench's defaults, the others cut to one window of one chunk
+BENCH_CUT = {"TMT_BENCH_STEPS": "1", "TMT_BENCH_REPS": "1"}
+BENCH_RUNS = ((1, {}), (3, {}), (0, BENCH_CUT), (2, BENCH_CUT), (4, BENCH_CUT))
+BENCH_TIMEOUT = 300
+# phase 21: kernel_coverage's and truncation_audit's runs (their tools' defaults)
+COVERAGE_BATCH, COVERAGE_STEPS = 256, 30
+AUDIT_BATCH, AUDIT_STEPS = 4096, 32
 SLEEP_CYCLES = 20_000_000  # ~10 ms on the card: longer than the host takes to queue the launches
 SEED = 0
 # phase 10's learner against the recorded JAX one, leaf by leaf by relative
@@ -197,42 +231,6 @@ def _config(R, C, K, moves=30, specials=(0, 0, 0, 0)):
     cookie, v_laser, h_laser, bomb = (bool(f) for f in specials)
     return EnvConfig(R, C, K, moves, cookie=cookie, vertical_laser=v_laser,
                      horizontal_laser=h_laser, bomb=bomb)
-
-
-def replay_fixture(device, path: str = FIXTURE) -> int:
-    """Replay a recorded JAX rollout through ``BatchedTileMatchEnv`` on
-    ``device``; raises on the first field that differs.  Returns the number
-    of steps replayed."""
-    import torch
-
-    from tile_match_tpu_torch import random as trandom
-    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
-    from tile_match_tpu_torch.interop import state_to_numpy, timestep_to_numpy
-
-    d = np.load(path)
-    R, C, K, moves = (int(v) for v in d["config"])
-    specials = d["specials"] if "specials" in d.files else (0, 0, 0, 0)
-    env = BatchedTileMatchEnv(_config(R, C, K, moves, specials), d["colour"].shape[1], device=device)
-
-    def compare(t, states, ts):
-        got = state_to_numpy(states)
-        tsn = timestep_to_numpy(ts)
-        got.update({k: v for k, v in tsn.items() if k != "info"})
-        got.update(tsn["info"])
-        for name, value in got.items():
-            check(
-                np.array_equal(value, d[name][t]),
-                f"fixture step {t}: field {name} differs from the JAX rollout",
-            )
-
-    states, ts = env.reset(trandom.PRNGKey(int(d["seed"]), device))
-    compare(0, states, ts)
-    actions = d["actions"]
-    for t in range(actions.shape[0]):
-        acts = torch.as_tensor(actions[t].astype(np.int64), device=device)
-        states, ts = env.step(states, acts)
-        compare(t + 1, states, ts)
-    return actions.shape[0]
 
 
 def play_episode(engine, cfg, ep) -> list:
@@ -447,7 +445,7 @@ def check_kernels(device, smi):
     # K1
     names = ("colour", "elim", "trips", "truncated", "mask")
     err = 0
-    for R, C, K, B in ((10, 10, 4, MAIN_BATCH), (5, 5, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256)):
+    for R, C, K, B in K1_SHAPES:
         cfg = _config(R, C, K)
         colour, sub = _random_inputs(R, C, K, B, seed=R * 1000 + B, device=device)
         got = cascade.fused_cascade(cfg, colour, sub)
@@ -683,9 +681,10 @@ def main_paths(device, smi):
     """Phases 4-8, the port's main paths on the card.  Returns each
     kernel's launches over the batched drives (phases 5-7)."""
     from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+    from tile_match_tpu_torch.tools.parity_check import replay_fixture
 
     # 4. the recorded JAX rollouts, on the card
-    for path in (FIXTURE, FIXTURE_CFG3, FIXTURE_NOBOMB):
+    for path in FIXTURES_BATCHED:
         n = replay_fixture(device, path)
         print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
 
@@ -1584,6 +1583,86 @@ def scale_out(device, smi) -> None:
     print("phase 19 ok")
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-21: the port's bench and its gate tools
+# ---------------------------------------------------------------------------
+def run_bench(config: int, cut: dict, smi) -> dict:
+    """Phase 20: ``python -m tile_match_tpu_torch.bench --config N`` in a
+    subprocess, with the environment's ``TMT_BENCH_*`` replaced by ``cut``.
+    Checks its exit code, its last line (bench.py's four keys, a value
+    above 0) and the path's kernels in its launches line; echoes its gate
+    and bench lines.  Returns the last line."""
+    from tile_match_tpu_torch.bench import PATH_KERNELS
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TMT_BENCH_")}
+    env.update(cut)
+    tag = f"phase 20 config {config}"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tile_match_tpu_torch.bench", "--config", str(config)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+    )
+    check(out.returncode == 0, f"{tag}: the bench exited {out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith(("gate:", "bench:")):
+            print(f"{tag}: {line}")
+    last = json.loads(lines[-1])
+    check(set(last) == {"metric", "value", "unit", "vs_baseline"} and last["value"] > 0,
+          f"{tag}: the bench's last line {lines[-1]}")
+    launches = next(line for line in lines if line.startswith("bench: launches a step:"))
+    counts = {name: float(n) for name, n in
+              (item.split() for item in launches.split(":", 2)[2].split(","))}
+    required = PATH_KERNELS[config >= 2]  # configs 2-4 hold specials
+    check(all(counts[name] > 0 for name in required),
+          f"{tag}: the timed windows did not launch {required}: {counts}")
+    cut_note = f", cut to {cut}" if cut else ", the bench's defaults"
+    print(f"{tag} ok: gate passed, {lines[-1]} in {time.perf_counter() - t0:.1f} s with the "
+          f"process's start{cut_note} ({smi})")
+    return last
+
+
+def gate_tools(device, smi) -> None:
+    """Phase 21: ``parity_check``'s checks, ``kernel_coverage`` on config 3
+    and ``truncation_audit`` on config 3, on the card; the last two with
+    the plain settled mask refused there (``parity_check`` holds K1
+    against its plain version on the card, whose mask is the plain one)."""
+    import io
+
+    from tile_match_tpu_torch.bench import make_config
+    from tile_match_tpu_torch.tools import kernel_coverage, parity_check, truncation_audit
+
+    _zero_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        parity_check.main([])
+    for line in buf.getvalue().splitlines():
+        print(f"phase 21: parity_check: {line}")
+    counts = _launch_counts()
+    check(all(n > 0 for n in counts.values()), f"phase 21: parity_check launches {counts}")
+    print(f"phase 21 ok: parity_check passed on the card; launches {counts}")
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with plain_mask_refused():
+        cov = kernel_coverage.coverage(make_config(3), COVERAGE_BATCH, COVERAGE_STEPS, device)
+    counts = _launch_counts()
+    check(cov["trips_total"] > 0 and cov["trips_kernel"] > 0 and counts["cascade_sp_chunk"] > 0,
+          f"phase 21: kernel_coverage {cov}, launches {counts}")
+    print(f"phase 21 ok: kernel_coverage config 3 B={COVERAGE_BATCH} {COVERAGE_STEPS} steps: "
+          f"{json.dumps(cov)}; launches {counts}; {time.perf_counter() - t0:.1f} s ({smi})")
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with plain_mask_refused():
+        n = truncation_audit.audit(make_config(3), AUDIT_BATCH, AUDIT_STEPS, device)
+    board_steps = AUDIT_BATCH * AUDIT_STEPS
+    check(n * 10000 < board_steps, f"phase 21: {n} truncated board-steps of {board_steps}")
+    print(f"phase 21 ok: truncation_audit config 3 B={AUDIT_BATCH} {AUDIT_STEPS} steps: {n} "
+          f"truncated of {board_steps} board-steps (limit 0.01%); launches {_launch_counts()}; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def _whole_params(shards) -> dict:
     """A whole network's weights from its tp shards (numpy), in tp order."""
     out = dict(shards[0])
@@ -1650,6 +1729,14 @@ def main() -> int:
     # 16-19. the scale-out layer, debug checks and throughput
     with plain_mask_refused():
         scale_out(device, smi)
+
+    # 20. the port's bench on every config, each in its own process
+    torch.cuda.empty_cache()
+    for config, cut in BENCH_RUNS:
+        run_bench(config, cut, smi)
+
+    # 21. the gate tools
+    gate_tools(device, smi)
 
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

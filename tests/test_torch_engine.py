@@ -149,6 +149,9 @@ def test_port_imports_without_jax():
         "import tile_match_tpu_torch.examples.random_baseline, tile_match_tpu_torch.examples.play\n"
         "import tile_match_tpu_torch.examples.q_learning_sweep, tile_match_tpu_torch.examples.dqn_train\n"
         "import tile_match_tpu_torch.examples.scaling\n"
+        "import tile_match_tpu_torch.bench, tile_match_tpu_torch.tools.parity_check\n"
+        "import tile_match_tpu_torch.tools.kernel_coverage\n"
+        "import tile_match_tpu_torch.tools.truncation_audit\n"
         "assert not any(m.startswith('tile_match_tpu.') or m == 'tile_match_tpu' for m in sys.modules)\n"
         "print('imported')\n"
     )

@@ -4,7 +4,6 @@ recorded JAX fixture, and the state carried across through numpy."""
 
 import dataclasses
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -30,11 +29,11 @@ from tile_match_tpu_torch.interop import (
     state_to_numpy,
     timestep_to_numpy,
 )
+from tile_match_tpu_torch.tools.parity_check import replay_fixture
 from tools import make_torch_port_fixture as fixture_tool
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = fixture_tool.FIXTURE
 
 
@@ -178,10 +177,7 @@ def test_interop_round_trip():
 
 
 def test_fixture_replays_exactly():
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
-    assert chip_smoke.replay_fixture("cpu") == 40
+    assert replay_fixture("cpu") == 40
 
 
 def test_fixture_is_up_to_date():

@@ -5,9 +5,6 @@ machinery) and ``BatchedTileMatchEnv`` against the JAX batched env
 sizes, ``engine.step`` against ``jax.vmap(engine.step)``, and the recorded
 config-3 rollout."""
 
-import os
-import sys
-
 import numpy as np
 import pytest
 
@@ -23,11 +20,11 @@ from tile_match_tpu_torch import engine as te
 from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.envs import batched as tbat
+from tile_match_tpu_torch.tools.parity_check import replay_fixture
 from tools import make_torch_port_fixture as fixture_tool
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LASERS_BOMB = ((), ("vertical_laser", "horizontal_laser", "bomb"))  # config 2
 ALL = (("cookie",), ("vertical_laser", "horizontal_laser", "bomb"))  # config 3
 NO_BOMB = (("cookie",), ("vertical_laser", "horizontal_laser"))  # config 3 without the bomb
@@ -130,28 +127,22 @@ def test_specials_without_bomb_are_refused():
 
 
 def test_cfg3_fixture_replays_exactly():
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
     d = np.load(fixture_tool.FIXTURE_CFG3)
     assert list(d["config"]) == [10, 10, 4, 30] and list(d["specials"]) == [1, 1, 1, 1]
     assert d["colour"].shape[1] == fixture_tool.BATCH_CFG3
     # the rollout exercises combinations, new specials and the reset
     assert d["is_combination_match"].any() and d["num_new_specials"].any() and d["done"].any()
     assert set(INFO_FIELDS) <= set(d.files)
-    assert chip_smoke.replay_fixture("cpu", fixture_tool.FIXTURE_CFG3) == fixture_tool.STEPS_CFG3
+    assert replay_fixture("cpu", fixture_tool.FIXTURE_CFG3) == fixture_tool.STEPS_CFG3
 
 
 def test_nobomb_fixture_replays_and_records():
     """The recorded no-bomb rollout (the JAX machinery's, on the CPU)
     replays through the port, and the tool still writes the same arrays."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
     d = np.load(fixture_tool.FIXTURE_NOBOMB)
     assert list(d["config"]) == [10, 10, 4, 30] and list(d["specials"]) == [1, 1, 1, 0]
     assert d["num_new_specials"].any() and d["is_combination_match"].any() and d["done"].any()
-    assert chip_smoke.replay_fixture("cpu", fixture_tool.FIXTURE_NOBOMB) == fixture_tool.STEPS_CFG3
+    assert replay_fixture("cpu", fixture_tool.FIXTURE_NOBOMB) == fixture_tool.STEPS_CFG3
     fresh = fixture_tool.record(fixture_tool.BATCH_CFG3, fixture_tool.STEPS_CFG3,
                                 fixture_tool.SPECIALS_NOBOMB)
     assert sorted(fresh) == sorted(d.files)

@@ -113,10 +113,9 @@ def test_env_on_card_equals_env_on_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_fixture_replays_on_card(cuda_device):
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    from tile_match_tpu_torch.tools.parity_check import replay_fixture
 
-    assert chip_smoke.replay_fixture(cuda_device) == 40
+    assert replay_fixture(cuda_device) == 40
 
 
 def _specials(R, C, K, moves=30, **kw):
@@ -321,11 +320,15 @@ def test_boards_too_large_for_four_masks_a_block_step_on_card(cuda_device, size,
 
 @pytest.mark.cuda
 def test_cfg3_fixture_replays_on_card(cuda_device):
+    from tile_match_tpu_torch.tools.parity_check import replay_fixture
+
     smoke = _chip_smoke()
-    assert smoke.replay_fixture(cuda_device, smoke.FIXTURE_CFG3) == 35
+    assert replay_fixture(cuda_device, smoke.FIXTURE_CFG3) == 35
 
 
 @pytest.mark.cuda
 def test_nobomb_fixture_replays_on_card(cuda_device):
+    from tile_match_tpu_torch.tools.parity_check import replay_fixture
+
     smoke = _chip_smoke()
-    assert smoke.replay_fixture(cuda_device, smoke.FIXTURE_NOBOMB) == 35
+    assert replay_fixture(cuda_device, smoke.FIXTURE_NOBOMB) == 35

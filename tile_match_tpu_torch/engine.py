@@ -159,6 +159,14 @@ def reset_cascade_stats() -> None:
 
 reset_cascade_stats()
 
+# Per-board telemetry of the last call of ``fused_specials_cascade`` (the
+# JAX package's ``with_stats``): ``reasons`` int32[B], the OR of each
+# board's K2 reason bits over the cascade; ``full_trips`` int32[B], each
+# board's trips run by the full machinery; ``rounds``, the loop's rounds
+# (a host int; the JAX loop compacts at most 128 or 256 frozen boards a
+# round, this one runs every frozen board, so the two counts differ).
+last_cascade: dict = {}
+
 
 def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     """The cascade of a move with specials, for a batch: colour, kind
@@ -172,8 +180,8 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     or freezes the board, and a frozen board takes its full trip — so the
     loop ends within ``max_cascades`` rounds.
 
-    Returns (colour, kind, elim, activated, new, trips, truncated) and adds
-    to ``cascade_stats``.
+    Returns (colour, kind, elim, activated, new, trips, truncated), adds
+    to ``cascade_stats`` and replaces ``last_cascade``.
     """
     B = colour.shape[0]
     T = cfg.max_cascades
@@ -183,6 +191,7 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     trunc = torch.zeros(B, dtype=torch.bool, device=dev)
     shifts = torch.arange(_N_REASONS, dtype=torch.int32, device=dev)
     active = has_any_line(cfg, colour)
+    board_reasons, board_full, rounds = zero.clone(), zero.clone(), 0
     while True:
         idx = active.nonzero()[:, 0]
         if idx.numel() == 0:
@@ -214,10 +223,14 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
             trunc[fidx] |= o3
             still[fz > 0] = has_any_line(cfg, c3) & (trips[fidx] < T)
         active = torch.zeros_like(active).index_copy_(0, idx, still)
+        board_reasons[idx] |= r2
+        board_full.index_add_(0, fidx, torch.ones_like(fidx, dtype=torch.int32))
+        rounds += 1
         cascade_stats["rounds"] += 1
         cascade_stats["full_trips"] += fidx.numel()
         froze = ((r2[:, None] >> shifts) & 1).sum(0).tolist()
         cascade_stats["reasons"] = [a + b for a, b in zip(cascade_stats["reasons"], froze)]
+    last_cascade.update(reasons=board_reasons, full_trips=board_full, rounds=rounds)
     return colour, kind, elim, act, new, trips, trunc | has_any_line(cfg, colour)
 
 

@@ -100,7 +100,11 @@ def random_effective(key, ts: TimeStep, offset: int = 0) -> torch.Tensor:
     from one key int64[2], as the JAX ``rollout``'s default policy draws.
     ``offset``: the global index of the first board, where these are a
     rank's rows of a larger batch."""
-    mask = ts.info.effective_actions
+    return masked_categorical(key, ts.info.effective_actions, offset)
+
+
+def masked_categorical(key, mask, offset: int = 0) -> torch.Tensor:
+    """``random_effective``'s draw from the mask bool[B, A] itself."""
     logits = torch.where(mask, 0.0, -torch.inf)
     acts = trandom.categorical(key, logits, axis=-1, offset=offset * mask.shape[-1])
     return torch.where(mask.any(-1), acts, 0).to(torch.int32)

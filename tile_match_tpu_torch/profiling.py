@@ -2,9 +2,10 @@
 ``tile_match_tpu.profiling``, on ``torch.profiler``).
 
 ``trace(logdir)`` is a ``torch.profiler`` context that writes a Chrome
-trace into ``logdir`` (a no-op for ``None``); ``measure_throughput`` times
-the batched step under the random effective policy, keyed as the JAX
-package's.  As a CLI, with the JAX package's flags:
+trace into ``logdir`` (a no-op for ``None``); ``timed_windows`` times the
+batched step under the random effective policy, keyed as the JAX
+package's, and ``measure_throughput`` reports its best window.  As a CLI,
+with the JAX package's flags:
 
     python -m tile_match_tpu_torch.profiling --rows 10 --cols 10 --colours 4 \
         --batch 1024 --steps 32 [--reps 3] [--no-specials] [--trace DIR] [--device cpu]
@@ -40,18 +41,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import subprocess
 import sys
 import time
 
-# bench.py's five configs: rows, cols, colours, moves, specials
-CONFIGS = [
-    (5, 5, 3, 10, ()),
-    (10, 10, 4, 30, ()),
-    (10, 10, 4, 30, ("vertical_laser", "horizontal_laser", "bomb")),
-    (10, 10, 4, 30, ("cookie", "vertical_laser", "horizontal_laser", "bomb")),
-    (20, 20, 6, 100, ("cookie", "vertical_laser", "horizontal_laser", "bomb")),
-]
 PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel")
 
 
@@ -68,6 +60,14 @@ def _busy_us(intervals) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+def kernel_modules() -> dict:
+    """The modules of the port's kernel wrappers by kernel name; each counts
+    its kernel's launches in ``launches``."""
+    from .ops import cascade, cascade_sp, mask_sp
+
+    return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}
 
 
 @contextlib.contextmanager
@@ -88,6 +88,100 @@ def trace(logdir: str | None):
         yield
 
 
+# the keys of the JAX package's ``measure_throughput``
+THROUGHPUT_KEYS = ("steps_per_sec", "batch_size", "num_steps", "times", "device")
+
+
+def timed_windows(
+    cfg,
+    batch_size: int,
+    num_steps: int,
+    reps: int,
+    seed: int = 0,
+    logdir: str | None = None,
+    device=None,
+    warmup: int = 1,
+) -> dict:
+    """The batched step under the random effective policy, timed in
+    windows (``device``: the card unless the caller names another).
+
+    The JAX package's loop and draws: boards reset from ``PRNGKey(seed)``,
+    the policy keyed from ``PRNGKey(seed + 1)`` (``key, ka = split(key)``
+    each step), ``warmup`` warm-up steps, then ``reps`` timed windows of
+    ``num_steps`` steps, each ended by a device synchronisation.  A CUDA
+    event after each step times it on the card with no host
+    synchronisation inside a window.  Returns ``measure_throughput``'s keys
+    (the best window's board-steps/s, the sizes, each window's seconds, the
+    device's name) and ``step_ms`` (each window's steps), ``dones`` (each
+    window's finished episodes), ``rewards`` (each step's reward summed
+    over the boards), ``launches`` (each kernel wrapper's launches over the
+    windows) and the final ``states`` and ``ts``."""
+    import torch
+
+    from . import random as trandom
+    from .envs.batched import batched_reset, batched_step, random_effective
+    from .parity import resolve_device
+
+    device = resolve_device(device)
+    kernels = kernel_modules()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def mark():
+        if device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def elapsed_ms(a, b):
+        return a.elapsed_time(b) if device.type == "cuda" else (b - a) * 1e3
+
+    def step_random(states, ts, key):
+        key, ka = trandom.split(key)
+        acts = random_effective(ka, ts)
+        states, ts = batched_step(cfg, states, acts, eff_mask=ts.info.effective_actions)
+        return states, ts, key
+
+    states, ts = batched_reset(cfg, trandom.PRNGKey(seed, device), batch_size)
+    key = trandom.PRNGKey(seed + 1, device)
+    for _ in range(warmup):
+        states, ts, key = step_random(states, ts, key)
+    sync()
+
+    times, step_ms, dones, rewards = [], [], [], []
+    before = {n: m.launches for n, m in kernels.items()}
+    with trace(logdir):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            marks, run_dones, run_rewards = [mark()], [], []
+            for _ in range(num_steps):
+                states, ts, key = step_random(states, ts, key)
+                marks.append(mark())
+                run_dones.append(ts.done)
+                run_rewards.append(ts.reward)
+            sync()
+            times.append(time.perf_counter() - t0)
+            step_ms.append([elapsed_ms(a, b) for a, b in zip(marks, marks[1:])])
+            dones.append(int(torch.stack(run_dones).sum()))
+            rewards += torch.stack(run_rewards).double().sum(1).tolist()
+    return {
+        "steps_per_sec": max(batch_size * num_steps / dt for dt in times),
+        "batch_size": batch_size,
+        "num_steps": num_steps,
+        "times": times,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
+        "step_ms": step_ms,
+        "dones": dones,
+        "rewards": rewards,
+        "launches": {n: m.launches - before[n] for n, m in kernels.items()},
+        "states": states,
+        "ts": ts,
+    }
+
+
 def measure_throughput(
     cfg,
     batch_size: int = 1024,
@@ -98,54 +192,11 @@ def measure_throughput(
     device=None,
 ) -> dict:
     """Board-steps/s of the batched step under the random effective policy
-    (``device``: the card unless the caller names another).
-
-    The JAX package's loop and draws: boards reset from ``PRNGKey(seed)``,
-    the policy keyed from ``PRNGKey(seed + 1)`` (``key, ka = split(key)``
-    each step), one warm-up step, then ``reps`` timed runs of ``num_steps``
-    steps, each ended by a device synchronisation.  Returns the best rate,
-    the sizes, each run's seconds and the device's name."""
-    import torch
-
-    from . import random as trandom
-    from .envs.batched import batched_reset, batched_step, random_effective
-    from .parity import resolve_device
-
-    device = resolve_device(device)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    def step_random(states, ts, key):
-        key, ka = trandom.split(key)
-        acts = random_effective(ka, ts)
-        states, ts = batched_step(cfg, states, acts, eff_mask=ts.info.effective_actions)
-        return states, ts, key
-
-    states, ts = batched_reset(cfg, trandom.PRNGKey(seed, device), batch_size)
-    key = trandom.PRNGKey(seed + 1, device)
-    states, ts, key = step_random(states, ts, key)
-    sync()
-
-    best, times = 0.0, []
-    with trace(logdir):
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            for _ in range(num_steps):
-                states, ts, key = step_random(states, ts, key)
-            sync()
-            dt = time.perf_counter() - t0
-            times.append(dt)
-            best = max(best, batch_size * num_steps / dt)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
-    return {
-        "steps_per_sec": best,
-        "batch_size": batch_size,
-        "num_steps": num_steps,
-        "times": times,
-        "device": name,
-    }
+    (``device``: the card unless the caller names another): ``timed_windows``
+    after one warm-up step.  Returns the best rate, the sizes, each run's
+    seconds and the device's name."""
+    run = timed_windows(cfg, batch_size, num_steps, reps, seed, logdir, device)
+    return {k: run[k] for k in THROUGHPUT_KEYS}
 
 
 def main(argv=None) -> int:
@@ -203,25 +254,19 @@ def profile_step(argv) -> int:
         print("profiling: needs a CUDA card", file=sys.stderr)
         return 1
     from . import random as trandom
+    from .bench import CONFIGS, card_line
     from .config import EnvConfig
     from .envs.batched import BatchedTileMatchEnv
-    from .ops import cascade, cascade_sp, mask_sp
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip())
-    R, C, K, moves, specials = CONFIGS[args.config]
+    dev = torch.device("cuda", 0)
+    print(card_line(dev))
+    R, C, K, moves, colourless, colour = CONFIGS[args.config]
     if args.no_bomb:
-        specials = tuple(n for n in specials if n != "bomb")
-    cfg = EnvConfig.create(
-        R, C, K, moves,
-        colourless_specials=tuple(n for n in specials if n == "cookie"),
-        colour_specials=tuple(n for n in specials if n != "cookie"),
-    )
+        colour = tuple(n for n in colour if n != "bomb")
+    cfg = EnvConfig.create(R, C, K, moves, colourless_specials=colourless,
+                           colour_specials=colour)
     if 2 * args.steps + 4 >= moves:
         raise SystemExit(f"--steps must leave the window before the reset at step {moves}")
-    dev = torch.device("cuda", 0)
     parts = []  # (label) of the train step's parts whose launches are counted
     if args.dqn:
         from .models import dqn
@@ -260,8 +305,7 @@ def profile_step(argv) -> int:
     for _ in range(4):
         one_step()
     torch.cuda.synchronize()
-    wrappers = {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp,
-                "settled_mask_sp": mask_sp}
+    wrappers = kernel_modules()
     for m in wrappers.values():
         m.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

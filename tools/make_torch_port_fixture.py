@@ -16,6 +16,13 @@ and TimeStep field of every step:
   batched env steps through ``jax.vmap(engine.step)``, the full
   classify/resolve machinery on every trip, and not through its Pallas
   kernel, so this rollout is the machinery's;
+* ``tests/data/torch_port_fixture_cfg0.npz``, ``_cfg2.npz``, ``_cfg4.npz``:
+  the other configs of ``bench.py``, so that the port bench's gate replays
+  a JAX rollout of every config: config 0 (5x5, 3 colours, 10 moves, no
+  specials) at 64 boards for 12 steps (one reset at step 10), config 2
+  (10x10, 4 colours, both lasers and the bomb) at 32 boards for 12 steps,
+  config 4 (20x20, 6 colours, 100 moves, every special) at 16 boards for
+  8 steps;
 * ``tests/data/torch_port_gym_episodes.json``: single-board episodes of the
   JAX Gym adapter ``TileMatchEnv`` at 10x10, 4 colours, 8 moves, in both
   RNG modes ("threefry" and "numpy"), for four special sets — all, none,
@@ -46,8 +53,8 @@ and TimeStep field of every step:
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [NAME ...]
 
-writes every file, or those named (``cfg1``, ``cfg3``, ``nobomb``, ``dqn``,
-``gym``, ``sharded``).
+writes every file, or those named (``cfg0``, ``cfg1``, ``cfg2``, ``cfg3``,
+``cfg4``, ``nobomb``, ``dqn``, ``gym``, ``sharded``).
 
 ``tests/test_torch_envs.py``, ``tests/test_torch_envs_sp.py``,
 ``tests/test_torch_gym.py``, ``tests/test_torch_models_fixture.py`` and
@@ -76,6 +83,15 @@ BATCH_CFG3 = 32
 STEPS_CFG3 = 35
 FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
 SPECIALS_NOBOMB = ("cookie", "vertical_laser", "horizontal_laser")
+# configs 0, 2 and 4 of bench.py: name -> (file, config, specials, boards, steps)
+BENCH_FIXTURES = {
+    "cfg0": (os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg0.npz"),
+             dict(num_rows=5, num_cols=5, num_colours=3, num_moves=10), (), 64, 12),
+    "cfg2": (os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg2.npz"), CONFIG,
+             ("vertical_laser", "horizontal_laser", "bomb"), 32, 12),
+    "cfg4": (os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg4.npz"),
+             dict(num_rows=20, num_cols=20, num_colours=6, num_moves=100), SPECIALS_CFG3, 16, 8),
+}
 FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json")
 # special sets of the Gym episodes: (name, colourless specials, colour specials)
 GYM_SETS = (
@@ -133,11 +149,13 @@ def policy_actions(t: int, mask: np.ndarray) -> np.ndarray:
     return np.where(n_eff > 0, hit.argmax(-1), 0).astype(np.int32)
 
 
-def record(batch: int = BATCH, steps: int = STEPS, specials=()) -> dict:
+def record(batch: int = BATCH, steps: int = STEPS, specials=(), config=None) -> dict:
     """Run the JAX package and return the fixture's arrays, each stacked
     over steps 0..steps (step 0 is the reset).  ``specials``: the enabled
     special names; with any, the file also holds their flags under
-    "specials" (cookie, vertical laser, horizontal laser, bomb)."""
+    "specials" (cookie, vertical laser, horizontal laser, bomb).
+    ``config``: rows, cols, colours and moves (default ``CONFIG``)."""
+    config = config or CONFIG
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     import jax
@@ -146,7 +164,7 @@ def record(batch: int = BATCH, steps: int = STEPS, specials=()) -> dict:
     from tile_match_tpu.envs.batched import BatchedTileMatchEnv
 
     cfg = EnvConfig.create(
-        **CONFIG,
+        **config,
         colourless_specials=tuple(n for n in specials if n == "cookie"),
         colour_specials=tuple(n for n in specials if n != "cookie"),
     )
@@ -172,7 +190,7 @@ def record(batch: int = BATCH, steps: int = STEPS, specials=()) -> dict:
     out["actions"] = np.stack(actions)
     out["seed"] = np.asarray(SEED, np.int32)
     out["config"] = np.asarray(
-        [CONFIG[k] for k in ("num_rows", "num_cols", "num_colours", "num_moves")],
+        [config[k] for k in ("num_rows", "num_cols", "num_colours", "num_moves")],
         np.int32,
     )
     if specials:
@@ -444,6 +462,8 @@ def main(names=None) -> None:
         "nobomb": (FIXTURE_NOBOMB, lambda: record(BATCH_CFG3, STEPS_CFG3, SPECIALS_NOBOMB)),
         "dqn": (FIXTURE_DQN, record_dqn),
         "sharded": (FIXTURE_SHARDED, record_sharded),
+        **{name: (path, lambda c=config, sp=specials, b=batch, t=steps: record(b, t, sp, c))
+           for name, (path, config, specials, batch, steps) in BENCH_FIXTURES.items()},
     }
     names = names or [*recorders, "gym"]
     os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)

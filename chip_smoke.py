@@ -5,7 +5,7 @@
 
 Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
-  2. builds the three CUDA kernels from tile_match_tpu_torch/csrc/ — each
+  2. builds the four CUDA kernels from tile_match_tpu_torch/csrc/ — each
      once for every board shape of at most 32 by 32 that the run uses and
      once for larger boards — one nvcc a library, all at once, and prints
      their registers and spills and the boards each keeps in flight per SM
@@ -26,9 +26,16 @@ Phases, one line each or more; any failure exits non-zero:
      ``ms``; and queued behind a sleep on the card, the device alone);
      then K3 alone at 10x10x4 B=1, 130 and 16384, 20x20x6 B=1024
      and 36x36x6 B=256, with specials and without (``any_special``), on
-     sprinkled boards;
-  4-8 run with the plain settled mask refused on CUDA tensors
-     (``plain_mask_refused``): K3 computes every settled mask on the card;
+     sprinkled boards; then K4 specials_trip, the full-machinery trip, on
+     the boards K2's kernel froze and on raw boards with sprinkled specials
+     at 10x10x4 B=16384, 6x6x3 B=1000, 20x20x6 B=1024, 36x36x6 B=256,
+     80x80x6 B=16 (raw; its scratch in device memory) and at 10x10x3
+     B=4096 with max_lines=2 and with max_stack=2 (the caps fire), and
+     times it on the inputs of its first launch in a config-3 step at
+     B=16384 (the frozen boards of the cascade's first round);
+  4-19 run with the plain settled mask and the plain trip refused on CUDA
+     tensors (``plain_mask_refused``, ``plain_trip_refused``): K3 computes
+     every settled mask and K4 every full-machinery trip on the card;
   4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg0
      to _cfg4 and _nobomb.npz) through BatchedTileMatchEnv on the card
      (``tools.parity_check.replay_fixture``), every field;
@@ -37,10 +44,10 @@ Phases, one line each or more; any failure exits non-zero:
      that K1 and K3 ran on every step, prints the launches a step, and
      times the steps;
   6. runs config 3 (the same with cookie, both lasers and bomb), the
-     flagship, the same way: K2 and K3 on every step, board invariants,
-     truncation, and the cascade's telemetry;
-  7. runs config 3 without the bomb the same way: K2's no-bomb case table
-     and K3 on every step;
+     flagship, the same way: K2, K4 and K3 on every step, board
+     invariants, truncation, and the cascade's telemetry;
+  7. runs config 3 without the bomb the same way: K2's no-bomb case table,
+     K4 and K3 on every step;
   8. drives the Gym adapter's two engines on the card, one board at a
      time: replays tests/golden_episodes.json through the numpy-parity
      engine and the recorded JAX Gym episodes (tests/data/
@@ -48,7 +55,7 @@ Phases, one line each or more; any failure exits non-zero:
      laser-only and cookie-only specials) through ThreefryDriver and
      ParityEngine, bit for bit, checks that the threefry episodes launched
      the kernels, and prints ms per step;
-  9-15 run the training path, the plain settled mask still refused:
+  9-15 run the training path, the plain mask and trip still refused:
   9. replays the recorded JAX draws (tests/data/torch_port_fixture_dqn.npz):
      ``uniform`` over [16384] and the [16384, 180] uniforms of
      ``categorical`` bit for bit, its argmax on every board;
@@ -75,7 +82,7 @@ Phases, one line each or more; any failure exits non-zero:
   15. runs ``entry()``'s forward (every special, B=64) on the seeded
      weights against the recorded JAX entry: K2 and K3 launch;
   16-19 run the scale-out layer (``tile_match_tpu_torch.parallel``), the
-     plain settled mask still refused:
+     plain mask and trip still refused:
   16. starts a one-rank NCCL group (``initialize_distributed`` on a free
      localhost port); ``sharded_rollout`` on ``make_mesh(dp=1)`` replays
      the recorded JAX ``sharded_rollout`` (tests/data/
@@ -94,23 +101,26 @@ Phases, one line each or more; any failure exits non-zero:
      then (1, 2) on two ranks sharing the card over gloo against (1, 1):
      losses within rtol 5e-2, each leaf's change within LEARNER_DRIFT_REL;
      ms a step;
-  19. ``debug.checked_step`` over the recorded config-3 boards; a painted
-     ``max_lines=1`` board raises on the card, as does a step cut at
-     ``max_cascades=0``; ``profiling.measure_throughput`` on config 1 at
-     B=16384 prints its JSON;
+  19. ``debug.checked_step`` over the recorded config-3 boards (its full
+     trips through K4); a painted ``max_lines=1`` board raises on the
+     card, as does a step cut at ``max_cascades=0``; a painted board for
+     each of K4's caps (lines, classify queue, emissions, stack) raises
+     through K4 the message the plain trip raises on the CPU;
+     ``profiling.measure_throughput`` on config 1 at B=16384 prints its
+     JSON;
   20. runs the port's bench (``python -m tile_match_tpu_torch.bench``) in
      a process of its own for each of bench.py's five configs, on the
      libraries phase 2 built: configs 1 and 3 at the bench's defaults,
      configs 0, 2 and 4 cut to TMT_BENCH_STEPS=1 TMT_BENCH_REPS=1; each
      must exit 0 after its parity gate (on configs 0-1 it also holds K1
      against its plain version at the bench's batch), launch its path's
-     kernels (K1 on configs 0-1, K2 and K3 on configs 2-4) in the timed
-     windows and end
+     kernels (K1 on configs 0-1, K2, K4 and K3 on configs 2-4) in the
+     timed windows and end
      with bench.py's line (metric, value above 0, unit, vs_baseline); its
      gate and window lines are echoed;
   21. the gate tools on the card: ``tools.parity_check`` (every check;
      it holds K1 against its plain version on the card, so the plain mask
-     runs there), then, with the plain settled mask refused again,
+     runs there), then, with the plain mask and trip refused again,
      ``tools.kernel_coverage`` on config 3 (B=256, 30 steps) and
      ``tools.truncation_audit`` on config 3 (B=4096, 32 steps, truncated
      board-steps under 0.01%).
@@ -150,6 +160,8 @@ KERNELS = {
     "fused_cascade": ("cascade", "cascade", "tile_match_tpu/ops/pallas_cascade.py:1107"),
     "cascade_sp_chunk": ("cascade_sp", "cascade_sp", "tile_match_tpu/ops/pallas_cascade.py:1434"),
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
+    # no Pallas kernel: the XLA program of the full-machinery trip
+    "specials_trip": ("trip_sp", "trip_sp", "tile_match_tpu/engine.py:173"),
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
 # K1 alone: (R, C, K, B); it takes four warps a board below 8,192 boards a
@@ -164,7 +176,13 @@ LIBRARY_SHAPES = {
     "cascade": ((10, 10), (5, 5), (20, 20), (36, 36)),
     "cascade_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
     "mask_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
+    "trip_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
 }
+# K4 on K2's frozen boards and on raw boards: (R, C, K, B, config overrides);
+# 80x80's scratch exceeds a block's shared memory and lies in device memory
+K4_SHAPES = ((10, 10, 4, 16384, {}), (6, 6, 3, 1000, {}),
+             (20, 20, 6, 1024, {}), (36, 36, 6, 256, {}), (80, 80, 6, 16, {}),
+             (10, 10, 3, 4096, {"max_lines": 2}), (10, 10, 3, 4096, {"max_stack": 2}))
 # K3 alone, with specials and without: (R, C, K, B)
 K3_SHAPES = ((10, 10, 4, 1), (10, 10, 4, 130), (10, 10, 4, 16384), (20, 20, 6, 1024),
              (36, 36, 6, 256))
@@ -178,9 +196,10 @@ NO_BOMB = (1, 1, 1, 0)
 # specials, the kernels every step must launch)
 MAIN_PATHS = {
     "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp")),
-    "3": ("phase 6 (config 3)", ALL_SPECIALS, ("cascade_sp_chunk", "settled_mask_sp")),
+    "3": ("phase 6 (config 3)", ALL_SPECIALS,
+          ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
     "3-no-bomb": ("phase 7 (config 3 without the bomb)", NO_BOMB,
-                  ("cascade_sp_chunk", "settled_mask_sp")),
+                  ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
 }
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
@@ -359,6 +378,40 @@ def corner_boards(B, seed):
         colour[b, r, c0 : c0 + hl] = pc
         colour[b, r - vl + 1 : r + 1, cross] = pc
     return colour, np.ones_like(colour)
+
+
+def _filler(R, C):
+    """A line-free grid of colours 1-3 (period-2 checker)."""
+    r = np.arange(R)[:, None]
+    c = np.arange(C)[None, :]
+    return (((r % 2) * 2 + (c % 2)) % 3 + 1).astype(np.int32)
+
+
+# K4's capacity caps, each with a board on which it fires in a whole trip
+CAPS = ("lines", "queue", "emit", "stack")
+
+
+def cap_board(cap):
+    """(R, C, K, config overrides, colour, kind) of a board on which the
+    given cap fires in one full-machinery trip."""
+    if cap == "lines":  # two vertical lines, room for one
+        colour = _filler(5, 5)
+        colour[2:5, 0] = colour[2:5, 2] = 4
+        return 5, 5, 4, dict(max_lines=1), colour, np.ones_like(colour)
+    if cap == "queue":  # two crossing 13-lines: cookies whose remainders re-queue
+        colour = _filler(13, 13)
+        colour[:, 0] = colour[6, :] = 4
+        return 13, 13, 4, dict(max_lines=2), colour, np.ones_like(colour)
+    if cap == "emit":  # one 13-line, three matches (cookie, cookie, normal), room for two
+        colour = _filler(13, 13)
+        colour[:, 0] = 4
+        return 13, 13, 4, dict(max_lines=1), colour, np.ones_like(colour)
+    # stack: an h-laser in a line whose row holds a v-laser, one frame of room
+    colour = _filler(5, 5)
+    colour[2:5, 0] = 4
+    kind = np.ones_like(colour)
+    kind[3, 0], kind[3, 2] = 3, 2
+    return 5, 5, 4, dict(max_stack=1), colour, kind
 
 
 def _queued_ms(fn, reps: int) -> float:
@@ -566,7 +619,96 @@ def check_kernels(device, smi):
             err3 = max(err3, _assert_equal((got,), (want,), ("mask",), tag))
         print(f"phase 3: K3 {R}x{C}x{K} B={B} kernel == plain with specials and without")
     rec["settled_mask_sp"]["max_abs_err"] = err3
+    rec["specials_trip"] = check_trip(device, smi)
     return rec
+
+
+def frozen_trip_inputs(cfg, B, seed, device):
+    """K4's inputs from K2: the boards that K2's kernel froze among B boards
+    with sprinkled specials, as K2 left them, with their keys and trips."""
+    import torch
+
+    from tile_match_tpu_torch.ops import cascade_sp
+
+    colour, kind, keys = sprinkled_inputs(cfg.num_rows, cfg.num_cols, cfg.num_colours, B, seed,
+                                          device)[:3]
+    z = torch.zeros(B, dtype=torch.int32, device=device)
+    out = cascade_sp.cascade_sp_chunk(cfg, colour, kind, keys, z, z, z, limit=cfg.max_cascades)
+    f = out[6] > 0
+    return out[0][f].contiguous(), out[1][f].contiguous(), keys[f].contiguous(), out[2][f].contiguous()
+
+
+def main_path_trip_inputs(device):
+    """The inputs of K4's first launch in config 3's first step at
+    MAIN_BATCH from reset (the boards K2 froze in the cascade's first
+    round), recorded on their way to the kernel."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+
+    cfg = _config(10, 10, 4, 30, ALL_SPECIALS)
+    env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
+    states, ts = env.reset(trandom.PRNGKey(SEED, device))
+    mask = ts.info.effective_actions
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    actions = torch.where(mask, torch.rand(mask.shape, generator=gen, device=device), -1.0).argmax(-1)
+    seen, real = [], engine.specials_trip
+
+    def record(cfg_, *args):
+        if not seen:
+            seen.append(tuple(a.clone() for a in args))
+        return real(cfg_, *args)
+
+    engine.specials_trip = record
+    try:
+        env.step(states, actions)
+    finally:
+        engine.specials_trip = real
+    return cfg, seen[0]
+
+
+def check_trip(device, smi) -> dict:
+    """Phase 3, K4: the full-machinery trip against the plain trip on the
+    card, on K2's frozen boards, raw boards, tight caps and a board whose
+    scratch lies in device memory; then timed on the inputs of a main-path
+    launch.  Returns its kernels-line record."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch.ops import trip_sp
+
+    names = ("colour", "kind", "elim", "act", "new", "ovf")
+    err = 0
+    for R, C, K, B, caps in K4_SHAPES:
+        cfg = dataclasses.replace(_config(R, C, K, 30, ALL_SPECIALS), **caps)
+        sets = [("raw boards", sprinkled_inputs(R, C, K, B, seed=R * 7 + B, device=device)[:4])]
+        if R * C <= 1296:
+            sets.append(("K2's frozen boards", frozen_trip_inputs(cfg, B, R * 5 + B, device)))
+        for what, inputs in sets:
+            before = trip_sp.launches
+            got = trip_sp.specials_trip(cfg, *inputs)
+            want = engine.specials_cascade_trip(cfg, *inputs)
+            torch.cuda.synchronize()
+            check(trip_sp.launches == before + 1, "K4: the wrapper did not launch the kernel")
+            tag = f"K4 {R}x{C}x{K} {caps or ''} {what} ({inputs[0].shape[0]})"
+            err = max(err, _assert_equal(got, want, names, tag))
+            print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; activated "
+                  f"{int(got[3].sum())}, created {int(got[4].sum())}, ovf {int(got[5].sum())}")
+    cfg, inputs = main_path_trip_inputs(device)
+    out = trip_sp.specials_trip(cfg, *inputs)
+    err = max(err, _assert_equal(out, engine.specials_cascade_trip(cfg, *inputs), names,
+                                 "K4 main-path launch"))
+    ms, queued = _kernel_ms(lambda: trip_sp.specials_trip(cfg, *inputs), reps=20)
+    plain_ms = _time_ms(lambda: engine.specials_cascade_trip(cfg, *inputs), reps=2)
+    n = inputs[0].shape[0]
+    b_ms, b_by = bound(_nbytes(*inputs, *out), cascade_ops(cfg, int(out[2].sum()), n))
+    print(f"phase 3 ok: K4 10x10x4 config 3's first cascade round at B={MAIN_BATCH}, {n} frozen "
+          f"boards: kernel {ms:.4f} ms (queued {queued:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 @contextlib.contextmanager
@@ -597,6 +739,33 @@ def plain_mask_refused():
             m.effective_mask_settled = plain
 
 
+@contextlib.contextmanager
+def plain_trip_refused():
+    """Within: the plain full-machinery trip (``engine.specials_cascade_trip``
+    and ``specials_cascade_trip_grid``) raises on a CUDA tensor, so that it
+    provably serves nothing on the card; K4's wrapper serves every full
+    trip there."""
+    from tile_match_tpu_torch import engine
+
+    saved = {name: getattr(engine, name)
+             for name in ("specials_cascade_trip", "specials_cascade_trip_grid")}
+
+    def refusing(name, plain):
+        def refused(cfg, colour, *args):
+            check(colour.device.type != "cuda", f"the plain trip ({name}) ran on a CUDA tensor")
+            return plain(cfg, colour, *args)
+
+        return refused
+
+    for name, plain in saved.items():
+        setattr(engine, name, refusing(name, plain))
+    try:
+        yield
+    finally:
+        for name, plain in saved.items():
+            setattr(engine, name, plain)
+
+
 def drive(cfg, device, smi, tag, required):
     """Run ``cfg`` at MAIN_BATCH for MAIN_STEPS auto-resetting steps through
     BatchedTileMatchEnv under a random effective policy.  Every kernel
@@ -604,8 +773,6 @@ def drive(cfg, device, smi, tag, required):
     count of each kernel over the run (``launches``), the host-clock ms of
     every step, each ending in a device synchronisation (``step_ms``), and
     the steps in which boards auto-reset (``reset_steps``)."""
-    import importlib
-
     import torch
 
     from tile_match_tpu_torch import engine
@@ -613,8 +780,7 @@ def drive(cfg, device, smi, tag, required):
     from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
     from tile_match_tpu_torch.ops.lines import has_any_line
 
-    modules = {name: importlib.import_module(f"tile_match_tpu_torch.ops.{mod}")
-               for name, (mod, _, _) in KERNELS.items()}
+    modules = _kernel_modules()
     env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -814,10 +980,15 @@ def _syncs(caught) -> int:
 
 
 def _kernel_modules():
+    """The kernel wrappers' modules by kernel name: those the imported
+    package has (``tools/torch_step_times.py`` drives an earlier checkout's
+    package, which lacks the later kernels)."""
     import importlib
+    import importlib.util
 
-    return {name: importlib.import_module(f"tile_match_tpu_torch.ops.{mod}")
-            for name, (mod, _, _) in KERNELS.items()}
+    names = {name: f"tile_match_tpu_torch.ops.{mod}" for name, (mod, _, _) in KERNELS.items()}
+    return {name: importlib.import_module(m) for name, m in names.items()
+            if importlib.util.find_spec(m) is not None}
 
 
 def _launch_counts():
@@ -1421,13 +1592,16 @@ def check_debug(device) -> dict:
     boards (every step before the auto-reset: each next state equals the
     recorded one, and no check fires); a painted board with two lines
     raises ``lines_max overflow`` at ``max_lines=1``; a step cut at
-    ``max_cascades=0`` raises ``matches remain after step``.  Returns the
-    steps checked."""
+    ``max_cascades=0`` raises ``matches remain after step``; each of K4's
+    capacity caps, on a painted board, raises through the kernel (on the
+    card) the message the plain trip raises on the CPU.  Returns the steps
+    checked."""
     import torch
 
     from tile_match_tpu_torch import debug, engine
     from tile_match_tpu_torch import random as trandom
     from tile_match_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from tile_match_tpu_torch.ops import trip_sp
     from tile_match_tpu_torch.ops.lines import get_colour_lines
 
     device = torch.device(device)
@@ -1444,9 +1618,7 @@ def check_debug(device) -> dict:
                   f"checked_step {t}: {name} differs from the recorded JAX rollout")
         check(not bool(done.any()), f"checked_step {t}: a board is done before the last move")
 
-    r = np.arange(5)[:, None]
-    c = np.arange(5)[None, :]
-    colour = (((r % 2) * 2 + (c % 2)) % 3 + 1).astype(np.int32)
+    colour = _filler(5, 5)
     colour[2:5, 0] = 4
     colour[2:5, 2] = 4
     painted = dataclasses.replace(_config(5, 5, 4, 30, ALL_SPECIALS), max_lines=1, debug_checks=True)
@@ -1456,6 +1628,27 @@ def check_debug(device) -> dict:
     except RuntimeError as e:
         check("lines_max overflow: 2 detected lines exceed capacity 1" in str(e),
               f"debug_checks: the painted board raised {e!r}")
+
+    # K4's caps: each painted board raises, through the kernel on the card,
+    # the message the plain trip raises on the CPU
+    for cap in CAPS:
+        R, C, K, kw, colour, kind = cap_board(cap)
+        cfg = dataclasses.replace(_config(R, C, K, 30, ALL_SPECIALS), debug_checks=True, **kw)
+        inputs = (torch.from_numpy(colour)[None], torch.from_numpy(kind)[None],
+                  torch.tensor([[3, 4]]), torch.zeros(1, dtype=torch.int32))
+        messages = []
+        for dev in (torch.device("cpu"), device):
+            before = trip_sp.launches
+            try:
+                trip_sp.specials_trip(cfg, *(t.to(dev) for t in inputs))
+                messages.append("")
+            except RuntimeError as e:
+                messages.append(str(e))
+        check(device.type != "cuda" or trip_sp.launches == before + 1,
+              f"debug_checks {cap}: K4 did not launch")
+        check(messages[0] != "" and messages[1] == messages[0],
+              f"debug_checks {cap}: K4 raised {messages[1]!r}, the plain trip {messages[0]!r}")
+        print(f"phase 19: K4 {cap} cap on the card raised {messages[1]!r}, as the plain trip")
 
     cut = dataclasses.replace(_config(5, 5, 3, 10), max_cascades=0)
     states, info = engine.reset(cut, trandom.split(trandom.PRNGKey(0, device), 4))
@@ -1573,6 +1766,7 @@ def scale_out(device, smi) -> None:
     n = check_debug(device)
     print(f"phase 19 ok: checked_step passed {n['steps']} recorded config-3 steps of {n['boards']} "
           f"boards bit for bit; a painted max_lines=1 board raised lines_max overflow on the card, "
+          f"K4 raised each cap's message, "
           f"a max_cascades=0 step raised matches remain; launches {_launch_counts()}")
     _zero_launch_counts()
     out = profiling.measure_throughput(_config(10, 10, 4, 30), batch_size=MAIN_BATCH)
@@ -1644,7 +1838,7 @@ def gate_tools(device, smi) -> None:
 
     _zero_launch_counts()
     t0 = time.perf_counter()
-    with plain_mask_refused():
+    with plain_mask_refused(), plain_trip_refused():
         cov = kernel_coverage.coverage(make_config(3), COVERAGE_BATCH, COVERAGE_STEPS, device)
     counts = _launch_counts()
     check(cov["trips_total"] > 0 and cov["trips_kernel"] > 0 and counts["cascade_sp_chunk"] > 0,
@@ -1654,7 +1848,7 @@ def gate_tools(device, smi) -> None:
 
     _zero_launch_counts()
     t0 = time.perf_counter()
-    with plain_mask_refused():
+    with plain_mask_refused(), plain_trip_refused():
         n = truncation_audit.audit(make_config(3), AUDIT_BATCH, AUDIT_STEPS, device)
     board_steps = AUDIT_BATCH * AUDIT_STEPS
     check(n * 10000 < board_steps, f"phase 21: {n} truncated board-steps of {board_steps}")
@@ -1708,26 +1902,28 @@ def main() -> int:
         per_sm = {}
         for R, C in ((10, 10), (36, 36)):
             fn = getattr(cuda_build.load(src, cuda_build.shape_of(R, C)), f"tmt_{name}_occupancy")
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            args = (R, C, 6) if name == "specials_trip" else (R, C)  # K4: and 6 colours
+            fn.argtypes = [ctypes.c_int] * len(args)
             fn.restype = ctypes.c_int
-            per_sm[f"{R}x{C}"] = fn(R, C)
+            per_sm[f"{R}x{C}"] = fn(*args)
         print(f"phase 2: {name}: boards in flight per SM {per_sm} "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     # 3. kernels against their plain versions
     rec = check_kernels(device, smi)
 
-    # 4-8. the main paths, with the plain settled mask refused on the card
-    with plain_mask_refused():
+    # 4-8. the main paths, with the plain settled mask and the plain trip
+    # refused on the card
+    with plain_mask_refused(), plain_trip_refused():
         launches = main_paths(device, smi)
-    print("phases 4-8 ok: the plain settled mask ran on no CUDA tensor")
+    print("phases 4-8 ok: the plain settled mask and the plain trip ran on no CUDA tensor")
 
     # 9-15. the training path
-    with plain_mask_refused():
+    with plain_mask_refused(), plain_trip_refused():
         training_path(device, smi)
 
     # 16-19. the scale-out layer, debug checks and throughput
-    with plain_mask_refused():
+    with plain_mask_refused(), plain_trip_refused():
         scale_out(device, smi)
 
     # 20. the port's bench on every config, each in its own process

@@ -9,6 +9,7 @@ JAX (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 Without a card every test skips.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -16,13 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from tile_match_tpu_torch import cuda_build
+from tile_match_tpu_torch import cuda_build, engine
 from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv, random_effective
 from tile_match_tpu_torch.ops import cascade as tcas
 from tile_match_tpu_torch.ops import cascade_sp as tsp
 from tile_match_tpu_torch.ops import mask_sp as tmask
+from tile_match_tpu_torch.ops import trip_sp as ttrip
 from tile_match_tpu_torch.ops.effective import effective_mask_settled
 
 torch.set_num_threads(1)
@@ -37,9 +39,10 @@ def _libraries():
     """Build every kernel library the tests run at once, one nvcc each (the
     cascades take their board shape at compile time)."""
     if torch.cuda.is_available():
-        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES}
+        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES + K4_CASES}
         cuda_build.build_all([(src, cuda_build.shape_of(R, C))
-                              for src in ("cascade", "cascade_sp", "mask_sp") for R, C in shapes])
+                              for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp")
+                              for R, C in shapes])
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -332,3 +335,83 @@ def test_nobomb_fixture_replays_on_card(cuda_device):
 
     smoke = _chip_smoke()
     assert replay_fixture(cuda_device, smoke.FIXTURE_NOBOMB) == 35
+
+
+TRIP_NAMES = ["colour", "kind", "elim", "act", "new", "ovf"]
+# K4: (R, C, K, B, config overrides); 80x80's scratch lies in device memory
+K4_CASES = [(10, 10, 4, 2048, {}), (6, 6, 3, 500, {}), (20, 20, 6, 256, {}), (36, 36, 6, 64, {}),
+            (80, 80, 6, 8, {}), (10, 10, 3, 2048, {"max_lines": 2}),
+            (10, 10, 3, 2048, {"max_stack": 2})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,caps", K4_CASES)
+def test_specials_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, caps):
+    """On raw boards with sprinkled specials and on the boards K2's kernel
+    froze, under tight caps too."""
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(_specials(R, C, K), **caps)
+    sets = [smoke.sprinkled_inputs(R, C, K, B, seed=R + B, device=cuda_device)[:4]]
+    if R * C <= 1296:
+        sets.append(smoke.frozen_trip_inputs(cfg, B, R * B, cuda_device))
+    for inputs in sets:
+        before = ttrip.launches
+        got = ttrip.specials_trip(cfg, *inputs)
+        torch.cuda.synchronize()
+        assert ttrip.launches == before + 1
+        want = engine.specials_cascade_trip(cfg, *inputs)
+        for g, w, name in zip(got, want, TRIP_NAMES):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    if caps:
+        assert bool(got[5].any())  # the cap fired
+
+
+@pytest.mark.cuda
+def test_specials_trip_caps_raise_on_card(cuda_device):
+    """With debug_checks, each cap raises through K4 the plain trip's
+    message on the same board."""
+    smoke = _chip_smoke()
+    for cap in smoke.CAPS:
+        R, C, K, kw, colour, kind = smoke.cap_board(cap)
+        cfg = _specials(R, C, K, debug_checks=True, **kw)
+        inputs = (torch.from_numpy(colour)[None], torch.from_numpy(kind)[None],
+                  torch.tensor([[3, 4]]), torch.zeros(1, dtype=torch.int32))
+        with pytest.raises(RuntimeError) as want:
+            ttrip.specials_trip(cfg, *inputs)
+        with pytest.raises(RuntimeError) as got:
+            ttrip.specials_trip(cfg, *(t.to(cuda_device) for t in inputs))
+        assert str(got.value) == str(want.value), cap
+
+
+@pytest.mark.cuda
+def test_specials_trip_refuses_bad_input(cuda_device):
+    cfg = _specials(6, 6, 3)
+    colour, kind, keys, trips = _chip_smoke().sprinkled_inputs(6, 6, 3, 4, seed=0,
+                                                               device=cuda_device)[:4]
+    with pytest.raises(ValueError):
+        ttrip.specials_trip(cfg, colour.long(), kind, keys, trips)
+    with pytest.raises(ValueError):
+        ttrip.specials_trip(cfg, colour, kind, keys[:3], trips)
+    with pytest.raises(ValueError):  # not contiguous
+        ttrip.specials_trip(cfg, colour.transpose(1, 2), kind.transpose(1, 2), keys, trips)
+    big = _specials(256, 256, 3)
+    board = torch.ones((1, 256, 256), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="65535 cells"):
+        ttrip.specials_trip(big, board, board, keys[:1], trips[:1])
+
+
+@pytest.mark.cuda
+def test_specials_cascade_runs_every_full_trip_on_k4(cuda_device):
+    """``fused_specials_cascade`` on the card, with the plain trip refused
+    there, equals the cascade on the CPU."""
+    smoke = _chip_smoke()
+    cfg = _specials(10, 10, 4)
+    colour, kind, keys = smoke.sprinkled_inputs(10, 10, 4, 512, seed=9, device=cuda_device)[:3]
+    before = ttrip.launches
+    with smoke.plain_trip_refused():
+        got = engine.fused_specials_cascade(cfg, colour, kind, keys)
+    torch.cuda.synchronize()
+    assert ttrip.launches > before
+    want = engine.fused_specials_cascade(cfg, colour.cpu(), kind.cpu(), keys.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

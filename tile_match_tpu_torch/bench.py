@@ -64,7 +64,8 @@ CONFIGS = [
 # bench.py's batch of each config
 CONFIG_BATCH = [32768, 16384, 16384, 16384, 8192]
 # the kernels each config's step must launch
-PATH_KERNELS = {False: ("fused_cascade",), True: ("cascade_sp_chunk", "settled_mask_sp")}
+PATH_KERNELS = {False: ("fused_cascade",),
+                True: ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")}
 
 
 def make_config(idx: int):

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>[-RxC]-<hash>.so`` — the hash is
 of the source, of every ``csrc/*.cuh`` header it includes (directly or
 through another header) and of the flags, so an edited source or shared
-header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1, K2,
-K3) take their board shape at compile time: a library is built for each
+header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1 to
+K4) take their board shape at compile time: a library is built for each
 board shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``),
 and one without a shape serves every larger board (``shape_of``).
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.
@@ -163,8 +163,9 @@ def check_fits(lib: ctypes.CDLL, name: str, R: int, C: int, kernel: str) -> None
 
 def build_all(libs) -> None:
     """Build several libraries at once, one ``nvcc`` process each: each
-    item a source name, or (name, shape)."""
-    libs = [(lib, None) if isinstance(lib, str) else lib for lib in libs]
+    item a source name, or (name, shape); an item named twice is built
+    once."""
+    libs = list(dict.fromkeys((lib, None) if isinstance(lib, str) else tuple(lib) for lib in libs))
     with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
         for _ in pool.map(lambda lib: build(*lib), libs):
             pass

@@ -14,8 +14,9 @@ The cascade of a move runs on the kernels: without specials K1
 (``ops.cascade.fused_cascade``), which also hands back the settled mask;
 with specials, after the combination branch, ``fused_specials_cascade`` —
 K2 (``ops.cascade_sp.cascade_sp_chunk``) takes every board's simple trips,
-the full machinery (detect, classify, resolve, gravity, refill:
-``specials_cascade_trip_grid``) the others — and the settled mask is K3
+K4 (``ops.trip_sp.specials_trip``) the full-machinery trips of the others
+(detect, classify, resolve, gravity, refill; its plain version
+``specials_cascade_trip``) — and the settled mask is K3
 (``ops.mask_sp.settled_mask_sp``).  Every other settled mask — of a fresh
 board, of a shuffled one, of a step called without one — is K3 too, with
 specials or without.  On CUDA tensors these are the CUDA kernels, on CPU
@@ -40,6 +41,7 @@ from .ops.combination import combination_match, is_combination
 from .ops.lines import get_colour_lines, has_any_line, run_member_mask
 from .ops.mask_sp import settled_mask_sp
 from .ops.resolve import resolve_colour_matches
+from .ops.trip_sp import specials_trip
 from .state import EnvState, StepInfo, action_table
 
 
@@ -139,7 +141,8 @@ def specials_cascade_trip_grid(cfg: EnvConfig, colour, kind, grid):
 
 def specials_cascade_trip(cfg: EnvConfig, colour, kind, sub, it):
     """``specials_cascade_trip_grid`` refilling trip ``it`` (int or int[B])
-    from ``draw_colour_grid(fold_in(sub, it))``."""
+    from ``draw_colour_grid(fold_in(sub, it))``: K4's plain version
+    (``ops.trip_sp.specials_trip``)."""
     grid = draw_colour_grid(trandom.fold_in(sub, it), cfg)
     return specials_cascade_trip_grid(cfg, colour, kind, grid)
 
@@ -174,11 +177,11 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
 
     Each round launches K2 (``cascade_sp_chunk``) on every board still
     cascading — it runs each board's simple trips and freezes a board whose
-    next trip is not simple — then runs one full trip
-    (``specials_cascade_trip``) on every frozen board.  Every round moves
-    each cascading board at least one trip forward — K2 runs a simple trip
-    or freezes the board, and a frozen board takes its full trip — so the
-    loop ends within ``max_cascades`` rounds.
+    next trip is not simple — then runs one full trip on every frozen board
+    (K4, ``specials_trip``).  Every round moves each cascading board at
+    least one trip forward — K2 runs a simple trip or freezes the board,
+    and a frozen board takes its full trip — so the loop ends within
+    ``max_cascades`` rounds.
 
     Returns (colour, kind, elim, activated, new, trips, truncated), adds
     to ``cascade_stats`` and replaces ``last_cascade``.
@@ -211,7 +214,7 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
 
         fidx = idx[fz > 0]
         if fidx.numel():
-            c3, k3, e3, a3, n3, o3 = specials_cascade_trip(
+            c3, k3, e3, a3, n3, o3 = specials_trip(
                 cfg, colour[fidx], kind[fidx], sub_keys[fidx], trips[fidx]
             )
             colour = colour.index_copy(0, fidx, c3)

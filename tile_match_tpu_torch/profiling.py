@@ -65,9 +65,10 @@ def _busy_us(intervals) -> float:
 def kernel_modules() -> dict:
     """The modules of the port's kernel wrappers by kernel name; each counts
     its kernel's launches in ``launches``."""
-    from .ops import cascade, cascade_sp, mask_sp
+    from .ops import cascade, cascade_sp, mask_sp, trip_sp
 
-    return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp}
+    return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp,
+            "specials_trip": trip_sp}
 
 
 @contextlib.contextmanager
@@ -365,10 +366,9 @@ def profile_step(argv) -> int:
         setattr(module, name, wrapper)
 
     for module, name in ((engine, "combination_branch"), (engine, "combination_match"),
-                         (engine, "make_playable"), (engine, "get_colour_lines"),
-                         (engine, "process_colour_lines"), (engine, "resolve_colour_matches"),
+                         (engine, "make_playable"),
                          (engine, "fused_specials_cascade"), (engine, "cascade_sp_chunk"),
-                         (engine, "specials_cascade_trip_grid"), (engine, "settled_mask_sp")):
+                         (engine, "specials_trip"), (engine, "settled_mask_sp")):
         timed(module, name)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

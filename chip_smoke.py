@@ -5,7 +5,7 @@
 
 Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
-  2. builds the four CUDA kernels from tile_match_tpu_torch/csrc/ — each
+  2. builds the five CUDA kernels from tile_match_tpu_torch/csrc/ — each
      once for every board shape of at most 32 by 32 that the run uses and
      once for larger boards — one nvcc a library, all at once, and prints
      their registers and spills and the boards each keeps in flight per SM
@@ -32,10 +32,19 @@ Phases, one line each or more; any failure exits non-zero:
      80x80x6 B=16 (raw; its scratch in device memory) and at 10x10x3
      B=4096 with max_lines=2 and with max_stack=2 (the caps fire), and
      times it on the inputs of its first launch in a config-3 step at
-     B=16384 (the frozen boards of the cascade's first round);
-  4-19 run with the plain settled mask and the plain trip refused on CUDA
-     tensors (``plain_mask_refused``, ``plain_trip_refused``): K3 computes
-     every settled mask and K4 every full-machinery trip on the card;
+     B=16384 (the frozen boards of the cascade's first round); then K5
+     combination_trip, the combination branch, on boards whose swap cells
+     hold all 25 ordered pairs of kinds (and boards whose flag is clear,
+     which must come back unchanged) at 10x10x4 B=16384, 6x6x3 B=1000,
+     20x20x6 B=1024, 36x36x6 B=256, 80x80x6 B=16 (its stack in device
+     memory) and at 10x10x3 B=4096 with max_stack=2 and with
+     max_activation_steps=8 (the caps fire), and times it on the inputs of
+     its launch in step 20 of config 3 at B=16384;
+  4-19 run with the plain settled mask, the plain trip and the plain
+     combination branch refused on CUDA tensors (``plain_mask_refused``,
+     ``plain_trip_refused``, ``plain_combination_refused``): K3 computes
+     every settled mask, K4 every full-machinery trip and K5 every
+     combination branch on the card;
   4. replays the recorded JAX rollouts (tests/data/torch_port_fixture_cfg0
      to _cfg4 and _nobomb.npz) through BatchedTileMatchEnv on the card
      (``tools.parity_check.replay_fixture``), every field;
@@ -44,10 +53,11 @@ Phases, one line each or more; any failure exits non-zero:
      that K1 and K3 ran on every step, prints the launches a step, and
      times the steps;
   6. runs config 3 (the same with cookie, both lasers and bomb), the
-     flagship, the same way: K2, K4 and K3 on every step, board
-     invariants, truncation, and the cascade's telemetry;
-  7. runs config 3 without the bomb the same way: K2's no-bomb case table,
-     K4 and K3 on every step;
+     flagship, the same way: K5, K2, K4 and K3 on every step, board
+     invariants, truncation, the combination boards a step and the
+     cascade's telemetry;
+  7. runs config 3 without the bomb the same way: K5, K2's no-bomb case
+     table, K4 and K3 on every step;
   8. drives the Gym adapter's two engines on the card, one board at a
      time: replays tests/golden_episodes.json through the numpy-parity
      engine and the recorded JAX Gym episodes (tests/data/
@@ -73,7 +83,7 @@ Phases, one line each or more; any failure exits non-zero:
      ``eff_mask``: tile_match_tpu/envs/batched.py:91), K3 where boards
      regenerate (the auto-reset), the loss finite;
   11. holds the Q-network on numpy-seeded weights to the recorded flax Q;
-  12. trains the DQN on config 3 for 8 steps: K2 and K3 on every step;
+  12. trains the DQN on config 3 for 8 steps: K5, K2 and K3 on every step;
   13. runs DQN with replay (60 steps, updates from step 20 on, none
      before), QR-DQN (30 steps, 75 quantiles), ``run_random`` in both
      modes and ``train_dense`` at 3x3x2x5;
@@ -88,7 +98,7 @@ Phases, one line each or more; any failure exits non-zero:
      the recorded JAX ``sharded_rollout`` (tests/data/
      torch_port_fixture_sharded.npz: config 3, 64 boards, 8 steps) bit for
      bit; then config 1 and config 3 at B=16384 for 8 steps: K1 (config 1)
-     and K2 and K3 (config 3) on every step, K3 at config 1's reset;
+     and K5, K2 and K3 (config 3) on every step, K3 at config 1's reset;
      board-steps/s and launches a step;
   17. two ranks sharing the card over gloo (``parallel.launch``): dp=2 on
      config 3 at B=16384 for 8 steps equals phase 16's run board for board
@@ -105,7 +115,9 @@ Phases, one line each or more; any failure exits non-zero:
      trips through K4); a painted ``max_lines=1`` board raises on the
      card, as does a step cut at ``max_cascades=0``; a painted board for
      each of K4's caps (lines, classify queue, emissions, stack) raises
-     through K4 the message the plain trip raises on the CPU;
+     through K4 the message the plain trip raises on the CPU, and K5
+     under max_stack=2 and under max_activation_steps=3 the plain
+     branch's;
      ``profiling.measure_throughput`` on config 1 at B=16384 prints its
      JSON;
   20. runs the port's bench (``python -m tile_match_tpu_torch.bench``) in
@@ -114,13 +126,14 @@ Phases, one line each or more; any failure exits non-zero:
      configs 0, 2 and 4 cut to TMT_BENCH_STEPS=1 TMT_BENCH_REPS=1; each
      must exit 0 after its parity gate (on configs 0-1 it also holds K1
      against its plain version at the bench's batch), launch its path's
-     kernels (K1 on configs 0-1, K2, K4 and K3 on configs 2-4) in the
+     kernels (K1 on configs 0-1, K5, K2, K4 and K3 on configs 2-4) in the
      timed windows and end
      with bench.py's line (metric, value above 0, unit, vs_baseline); its
      gate and window lines are echoed;
   21. the gate tools on the card: ``tools.parity_check`` (every check;
      it holds K1 against its plain version on the card, so the plain mask
-     runs there), then, with the plain mask and trip refused again,
+     runs there), then, with the plain mask, trip and combination branch
+     refused again,
      ``tools.kernel_coverage`` on config 3 (B=256, 30 steps) and
      ``tools.truncation_audit`` on config 3 (B=4096, 32 steps, truncated
      board-steps under 0.01%).
@@ -162,6 +175,8 @@ KERNELS = {
     "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
     # no Pallas kernel: the XLA program of the full-machinery trip
     "specials_trip": ("trip_sp", "trip_sp", "tile_match_tpu/engine.py:173"),
+    # no Pallas kernel: the XLA combination round
+    "combination_trip": ("combination", "combination", "tile_match_tpu/envs/fused.py:469"),
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
 # K1 alone: (R, C, K, B); it takes four warps a board below 8,192 boards a
@@ -177,12 +192,22 @@ LIBRARY_SHAPES = {
     "cascade_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
     "mask_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
     "trip_sp": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
+    "combination": ((10, 10), (5, 5), (6, 6), (8, 8), (20, 20), (36, 36)),
 }
 # K4 on K2's frozen boards and on raw boards: (R, C, K, B, config overrides);
 # 80x80's scratch exceeds a block's shared memory and lies in device memory
 K4_SHAPES = ((10, 10, 4, 16384, {}), (6, 6, 3, 1000, {}),
              (20, 20, 6, 1024, {}), (36, 36, 6, 256, {}), (80, 80, 6, 16, {}),
              (10, 10, 3, 4096, {"max_lines": 2}), (10, 10, 3, 4096, {"max_stack": 2}))
+# K5 on boards whose swap cells hold every ordered pair of kinds: (R, C, K,
+# B, config overrides); 80x80's stack lies in device memory, and the tight
+# caps fire on some boards
+K5_SHAPES = ((10, 10, 4, 16384, {}), (6, 6, 3, 1000, {}), (20, 20, 6, 1024, {}),
+             (36, 36, 6, 256, {}), (80, 80, 6, 16, {}), (10, 10, 3, 4096, {"max_stack": 2}),
+             (10, 10, 3, 4096, {"max_activation_steps": 8}))
+# the config-3 step whose K5 inputs phase 3 times (late in the episode,
+# where the boards hold the most specials; the auto-reset is at step 29)
+K5_MAIN_STEP = 20
 # K3 alone, with specials and without: (R, C, K, B)
 K3_SHAPES = ((10, 10, 4, 1), (10, 10, 4, 130), (10, 10, 4, 16384), (20, 20, 6, 1024),
              (36, 36, 6, 256))
@@ -197,9 +222,9 @@ NO_BOMB = (1, 1, 1, 0)
 MAIN_PATHS = {
     "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp")),
     "3": ("phase 6 (config 3)", ALL_SPECIALS,
-          ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
+          ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
     "3-no-bomb": ("phase 7 (config 3 without the bomb)", NO_BOMB,
-                  ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
+                  ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
 }
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
@@ -235,6 +260,8 @@ PEAK_OPS = 67e12
 # operations a round, per refilled cell, and 3 per board-trip for its keys
 OPS_PER_REFILL = 2 * 20 * 3
 OPS_PER_TRIP_KEYS = 3 * 20 * 3
+# the combination branch's keys: split(key), then split(kd) for the refill
+OPS_PER_COMB_KEYS = 4 * 20 * 3
 
 
 def check(cond, msg: str) -> None:
@@ -360,6 +387,45 @@ def sprinkled_inputs(R, C, K, B, seed, device, kinds=(2, 3, 4, -1)):
     elim = rng.integers(0, 10, size=B).astype(np.int32)
     frozen = (rng.random(B) < 0.05).astype(np.int32)
     return tuple(torch.as_tensor(a, device=device) for a in (colour, kind, keys, trips, elim, frozen))
+
+
+KINDS = (-1, 1, 2, 3, 4)
+PAIRS = tuple((a, b) for a in KINDS for b in KINDS)  # every ordered pair of swap-cell kinds
+
+
+def combination_inputs(R, C, K, B, seed, device, kinds=(2, 3, 4, -1)):
+    """K5's inputs from numpy: uniform random boards with 0-9 specials each
+    of ``kinds`` (by default lasers, bombs, cookies — colour 0), a swap of a
+    random cell and its right or lower neighbour whose two cells hold the
+    25 ordered pairs of kinds (cookie, normal, vertical laser, horizontal
+    laser, bomb) in turn, threefry keys, and the combination flag: both
+    cells special or one a cookie (``ops.combination.is_combination``),
+    less one board in ten (a move that was not effective).  Returns
+    (colour, kind, keys, coord1, coord2, comb)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    colour = rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32)
+    kind = np.ones_like(colour)
+    n_sp = rng.integers(0, 10, size=B) if kinds else np.zeros(B, int)
+    for b in range(B):
+        cells = rng.choice(R * C, size=n_sp[b], replace=False)
+        ks = rng.choice(np.array(kinds, np.int32), size=n_sp[b])
+        kind[b].reshape(-1)[cells] = ks
+        colour[b].reshape(-1)[cells[ks == -1]] = 0
+    c1 = np.stack([rng.integers(0, R - 1, B), rng.integers(0, C - 1, B)], 1).astype(np.int32)
+    right = rng.random(B) < 0.5
+    c2 = (c1 + np.where(right[:, None], [0, 1], [1, 0])).astype(np.int32)
+    bi = np.arange(B)
+    pair = np.array(PAIRS, np.int32)[bi % len(PAIRS)]
+    for j, c in enumerate((c1, c2)):
+        kind[bi, c[:, 0], c[:, 1]] = pair[:, j]
+        colour[bi, c[:, 0], c[:, 1]] = np.where(pair[:, j] == -1, 0, rng.integers(1, K + 1, B))
+    k1, k2 = pair[:, 0], pair[:, 1]
+    comb = (((k1 > 1) | (k1 < 0)) & ((k2 > 1) | (k2 < 0))) | (k1 < 0) | (k2 < 0)
+    comb &= rng.random(B) < 0.9
+    keys = rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64)
+    return tuple(torch.as_tensor(a, device=device) for a in (colour, kind, keys, c1, c2, comb))
 
 
 def corner_boards(B, seed):
@@ -620,6 +686,7 @@ def check_kernels(device, smi):
         print(f"phase 3: K3 {R}x{C}x{K} B={B} kernel == plain with specials and without")
     rec["settled_mask_sp"]["max_abs_err"] = err3
     rec["specials_trip"] = check_trip(device, smi)
+    rec["combination_trip"] = check_combination(device, smi)
     return rec
 
 
@@ -711,6 +778,105 @@ def check_trip(device, smi) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def main_path_comb_inputs(device):
+    """The inputs of K5's launch in step K5_MAIN_STEP of config 3 at
+    MAIN_BATCH from reset under the random effective policy of ``drive``,
+    recorded on their way to the kernel."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+
+    cfg = _config(10, 10, 4, 30, ALL_SPECIALS)
+    env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    states, ts = env.reset(trandom.PRNGKey(SEED, device))
+    seen, real = [], engine.combination_trip
+
+    def record(cfg_, *args):
+        seen[:] = [tuple(a.clone() for a in args)]
+        return real(cfg_, *args)
+
+    engine.combination_trip = record
+    try:
+        for _ in range(K5_MAIN_STEP + 1):
+            mask = ts.info.effective_actions
+            scores = torch.rand(mask.shape, generator=gen, device=device)
+            states, ts = env.step(states, torch.where(mask, scores, -1.0).argmax(-1))
+    finally:
+        engine.combination_trip = real
+    return cfg, seen[-1]
+
+
+def check_combination(device, smi) -> dict:
+    """Phase 3, K5: the combination branch against the plain branch on the
+    card at K5_SHAPES, then timed on the inputs of a main-path launch.
+    Returns its kernels-line record."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch.ops import combination
+
+    names = ("colour", "kind", "key", "elim", "act", "ovf")
+    err = 0
+    for R, C, K, B, caps in K5_SHAPES:
+        cfg = dataclasses.replace(_config(R, C, K, 30, ALL_SPECIALS), **caps)
+        inputs = combination_inputs(R, C, K, B, seed=R * 11 + B, device=device)
+        before = combination.launches
+        got = combination.combination_trip(cfg, *inputs)
+        want = engine.combination_branch(cfg, *inputs)
+        torch.cuda.synchronize()
+        check(combination.launches == before + 1, "K5: the wrapper did not launch the kernel")
+        tag = f"K5 {R}x{C}x{K} B={B} {caps or ''}"
+        err = max(err, _assert_equal(got, want, names, tag))
+        comb = inputs[5]
+        check(bool((got[3][~comb] == 0).all()) and torch.equal(got[0][~comb], inputs[0][~comb]),
+              f"{tag}: a board whose flag is clear changed")
+        if caps:
+            check(bool(got[5].any()), f"{tag}: the cap fired on no board")
+        print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; {int(comb.sum())} flagged "
+              f"boards, activated {int(got[4].sum())}, eliminated {int(got[3].sum())}, ovf "
+              f"{int(got[5].sum())}")
+    cfg, inputs = main_path_comb_inputs(device)
+    out = combination.combination_trip(cfg, *inputs)
+    err = max(err, _assert_equal(out, engine.combination_branch(cfg, *inputs), names,
+                                 "K5 main-path launch"))
+    ms, queued = _kernel_ms(lambda: combination.combination_trip(cfg, *inputs), reps=20)
+    plain_ms = _time_ms(lambda: engine.combination_branch(cfg, *inputs), reps=2)
+    comb = inputs[5]
+    n = int(comb.sum())
+    # the flagged boards' bytes in (board, key, coordinates, flag) and out
+    # (board, key, counts); the refill's hashes and the keys' splits
+    per_board = _nbytes(*(t[:1] for t in inputs), *(t[:1] for t in out))
+    b_ms, b_by = bound(n * per_board, OPS_PER_REFILL * int(out[3].sum()) + OPS_PER_COMB_KEYS * n)
+    print(f"phase 3 ok: K5 10x10x4 config 3's step {K5_MAIN_STEP} at B={MAIN_BATCH}, {n} flagged "
+          f"boards (activated {int(out[4].sum())}, max {int(out[4].max())}): kernel {ms:.4f} ms "
+          f"(queued {queued:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({smi})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+@contextlib.contextmanager
+def plain_combination_refused():
+    """Within: the plain combination branch (``engine.combination_branch``)
+    raises on a CUDA tensor, so that it provably serves nothing on the card;
+    K5's wrapper serves every combination branch there."""
+    from tile_match_tpu_torch import engine
+
+    plain = engine.combination_branch
+
+    def refused(cfg, colour, *args):
+        check(colour.device.type != "cuda", "the plain combination branch ran on a CUDA tensor")
+        return plain(cfg, colour, *args)
+
+    engine.combination_branch = refused
+    try:
+        yield
+    finally:
+        engine.combination_branch = plain
+
+
 @contextlib.contextmanager
 def plain_mask_refused():
     """Within: the plain settled mask (``ops.effective.effective_mask_settled``)
@@ -766,13 +932,16 @@ def plain_trip_refused():
             setattr(engine, name, plain)
 
 
-def drive(cfg, device, smi, tag, required):
+def drive(cfg, device, smi, tag, required, host_syncs=False):
     """Run ``cfg`` at MAIN_BATCH for MAIN_STEPS auto-resetting steps through
     BatchedTileMatchEnv under a random effective policy.  Every kernel
     named in ``required`` must launch on every step.  Returns the launch
     count of each kernel over the run (``launches``), the host-clock ms of
-    every step, each ending in a device synchronisation (``step_ms``), and
-    the steps in which boards auto-reset (``reset_steps``)."""
+    every step, each ending in a device synchronisation (``step_ms``), the
+    steps in which boards auto-reset (``reset_steps``), the combination
+    boards a step (``combs_per_step``) and, with ``host_syncs``, the host
+    synchronisations of each step by torch's sync debug mode
+    (``syncs``; its warnings slow the step, so time another run)."""
     import torch
 
     from tile_match_tpu_torch import engine
@@ -789,8 +958,8 @@ def drive(cfg, device, smi, tag, required):
     states, ts = env.reset(trandom.PRNGKey(SEED, device))
     engine.reset_cascade_stats()
     torch.cuda.synchronize()
-    truncated = dones = trips = 0
-    step_ms, reset_steps = [], []
+    truncated = dones = trips = combs = 0
+    step_ms, reset_steps, syncs = [], [], []
     for t in range(MAIN_STEPS):
         mask = ts.info.effective_actions
         check(bool(mask.any(-1).all()), f"{tag} step {t}: a board has no effective action")
@@ -799,9 +968,11 @@ def drive(cfg, device, smi, tag, required):
         check(bool(mask.gather(1, actions[:, None]).all()), f"{tag} step {t}: ineffective action")
         before = {n: m.launches for n, m in modules.items()}
         t0 = time.perf_counter()
-        states, ts = env.step(states, actions)
+        with count_syncs() if host_syncs else contextlib.nullcontext([]) as caught:
+            states, ts = env.step(states, actions)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(_syncs(caught))
         for n in required:
             check(modules[n].launches > before[n], f"{tag} step {t}: kernel {n} was not launched")
         check(bool((ts.reward > 0).all()), f"{tag} step {t}: an effective move scored 0")
@@ -811,6 +982,7 @@ def drive(cfg, device, smi, tag, required):
         if done:
             reset_steps.append(t)
         trips += int(ts.info.cascade_trips.sum())
+        combs += int(ts.info.is_combination_match.sum())
     launches = {n: m.launches for n, m in modules.items()}
     print(f"{tag} launches a step: "
           f"{', '.join(f'{n} {c / MAIN_STEPS:.3f}' for n, c in launches.items())}")
@@ -828,7 +1000,8 @@ def drive(cfg, device, smi, tag, required):
     total_ms = sum(step_ms)
     print(f"{tag} ok: B={MAIN_BATCH} {MAIN_STEPS} steps, launches "
           f"{', '.join(f'{n} {c}' for n, c in launches.items())}, {dones} dones, "
-          f"{truncated} truncated of {board_steps} board-steps")
+          f"{truncated} truncated of {board_steps} board-steps, "
+          f"{combs / MAIN_STEPS:.1f} combination boards per step")
     print(f"{tag} time: {total_ms / MAIN_STEPS:.3f} ms/step (median "
           f"{sorted(step_ms)[MAIN_STEPS // 2]:.3f} ms), "
           f"{board_steps / (total_ms / 1e3):.1f} steps/s ({smi})")
@@ -840,13 +1013,14 @@ def drive(cfg, device, smi, tag, required):
               f"{trips / MAIN_STEPS:.1f} trips per step, "
               f"{1 - full_trips / max(trips, 1):.4f} of trips taken in the kernel, "
               f"K2 freezes per reason bit {stats['reasons']}")
-    return {"launches": launches, "step_ms": step_ms, "reset_steps": reset_steps}
+    return {"launches": launches, "step_ms": step_ms, "reset_steps": reset_steps,
+            "combs_per_step": combs / MAIN_STEPS, "syncs": syncs}
 
 
 def main_paths(device, smi):
     """Phases 4-8, the port's main paths on the card.  Returns each
     kernel's launches over the batched drives (phases 5-7)."""
-    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, combination, mask_sp
     from tile_match_tpu_torch.tools.parity_check import replay_fixture
 
     # 4. the recorded JAX rollouts, on the card
@@ -862,16 +1036,16 @@ def main_paths(device, smi):
             launches[name] += n
 
     # 8. the Gym entry point: its two engines, one board at a time
-    for m in (cascade, cascade_sp, mask_sp):
+    for m in (cascade, cascade_sp, mask_sp, combination):
         m.launches = 0
     golden_ms = replay_golden(device)
-    check(cascade.launches + cascade_sp.launches + mask_sp.launches == 0,
+    check(cascade.launches + cascade_sp.launches + mask_sp.launches + combination.launches == 0,
           "phase 8: the numpy-parity engine launched a kernel")
     print(f"phase 8 ok: replayed {len(golden_ms)} steps of golden_episodes.json bit for bit "
           f"through ParityEngine: {sum(golden_ms) / len(golden_ms):.1f} ms/step ({smi})")
     gym_ms = replay_gym(device)
     gym_launches = {"fused_cascade": cascade.launches, "cascade_sp_chunk": cascade_sp.launches,
-                    "settled_mask_sp": mask_sp.launches}
+                    "settled_mask_sp": mask_sp.launches, "combination_trip": combination.launches}
     check(all(n > 0 for n in gym_launches.values()),
           f"phase 8: the threefry episodes did not launch every kernel: {gym_launches}")
     for (mode, name), ms in gym_ms.items():
@@ -1268,7 +1442,8 @@ def training_path(device, smi) -> None:
     key3, k_init = trandom.split(trandom.PRNGKey(SEED, device))
     state3 = init3(k_init)
     state3, key3, r = _timed_steps(step3, state3, key3, 8, device,
-                                   ("cascade_sp_chunk", "settled_mask_sp"), "phase 12 DQN", dqn)
+                                   ("combination_trip", "cascade_sp_chunk", "settled_mask_sp"),
+                                   "phase 12 DQN", dqn)
     _print_report("phase 12 ok: DQN config 3 B=256 hidden 512", 8, r, smi)
 
     # 13. the other agents
@@ -1344,7 +1519,7 @@ def training_path(device, smi) -> None:
 
     # 15. the entry: env step fused with the Q-network forward
     counts = check_entry(device)
-    for name in ("cascade_sp_chunk", "settled_mask_sp"):
+    for name in ("combination_trip", "cascade_sp_chunk", "settled_mask_sp"):
         check(counts[name] > 0, f"phase 15: entry forward did not launch {name}")
     print(f"phase 15 ok: entry() forward at B=64 (EnvConfig(10, 10, 4, 30): every special) on "
           f"the seeded weights equals the recorded JAX entry: boards and rewards bit for bit, "
@@ -1579,7 +1754,8 @@ def rollout_ranks(specials, batch, steps, seed, device_type: str = "cuda") -> di
     mesh = make_mesh([device_type] * n, dp=n, tp=1)
     _zero_launch_counts()
     # on the CPU the wrappers run their plain versions: no launch to require
-    required = ("cascade_sp_chunk", "settled_mask_sp") if device_type == "cuda" else ()
+    required = (("combination_trip", "cascade_sp_chunk", "settled_mask_sp")
+                if device_type == "cuda" else ())
     run = sharded_run(_config(10, 10, 4, 30, specials), mesh, batch, steps, seed,
                       f"phase 17 rank {dist.get_rank()}", required)
     if dist.get_rank():
@@ -1601,7 +1777,7 @@ def check_debug(device) -> dict:
     from tile_match_tpu_torch import debug, engine
     from tile_match_tpu_torch import random as trandom
     from tile_match_tpu_torch.interop import state_from_numpy, state_to_numpy
-    from tile_match_tpu_torch.ops import trip_sp
+    from tile_match_tpu_torch.ops import combination, trip_sp
     from tile_match_tpu_torch.ops.lines import get_colour_lines
 
     device = torch.device(device)
@@ -1650,6 +1826,25 @@ def check_debug(device) -> dict:
               f"debug_checks {cap}: K4 raised {messages[1]!r}, the plain trip {messages[0]!r}")
         print(f"phase 19: K4 {cap} cap on the card raised {messages[1]!r}, as the plain trip")
 
+    # K5's caps: a tight stack and a tight step budget raise, through the
+    # kernel on the card, the message the plain branch raises on the CPU
+    inputs = combination_inputs(8, 8, 3, 256, seed=19, device="cpu")
+    for kw in (dict(max_stack=2), dict(max_activation_steps=3)):
+        cfg = dataclasses.replace(_config(8, 8, 3, 30, ALL_SPECIALS), debug_checks=True, **kw)
+        messages = []
+        for dev in (torch.device("cpu"), device):
+            before = combination.launches
+            try:
+                combination.combination_trip(cfg, *(t.to(dev) for t in inputs))
+                messages.append("")
+            except RuntimeError as e:
+                messages.append(str(e))
+        check(device.type != "cuda" or combination.launches == before + 1,
+              f"debug_checks {kw}: K5 did not launch")
+        check(messages[0] != "" and messages[1] == messages[0],
+              f"debug_checks {kw}: K5 raised {messages[1]!r}, the plain branch {messages[0]!r}")
+        print(f"phase 19: K5 {kw} on the card raised {messages[1]!r}, as the plain branch")
+
     cut = dataclasses.replace(_config(5, 5, 3, 10), max_cascades=0)
     states, info = engine.reset(cut, trandom.split(trandom.PRNGKey(0, device), 4))
     action = info.effective_actions.to(torch.int64).argmax(-1)
@@ -1691,7 +1886,8 @@ def scale_out(device, smi) -> None:
         runs = {}
         for name, specials, required in (("config 1", (0, 0, 0, 0), ("fused_cascade",)),
                                          ("config 3", ALL_SPECIALS,
-                                          ("cascade_sp_chunk", "settled_mask_sp"))):
+                                          ("combination_trip", "cascade_sp_chunk",
+                                           "settled_mask_sp"))):
             _zero_launch_counts()
             runs[name] = run = sharded_run(_config(10, 10, 4, 30, specials), mesh, MAIN_BATCH,
                                            SCALE_STEPS, SEED, f"phase 16 {name}", required)
@@ -1838,7 +2034,7 @@ def gate_tools(device, smi) -> None:
 
     _zero_launch_counts()
     t0 = time.perf_counter()
-    with plain_mask_refused(), plain_trip_refused():
+    with plain_mask_refused(), plain_trip_refused(), plain_combination_refused():
         cov = kernel_coverage.coverage(make_config(3), COVERAGE_BATCH, COVERAGE_STEPS, device)
     counts = _launch_counts()
     check(cov["trips_total"] > 0 and cov["trips_kernel"] > 0 and counts["cascade_sp_chunk"] > 0,
@@ -1848,7 +2044,7 @@ def gate_tools(device, smi) -> None:
 
     _zero_launch_counts()
     t0 = time.perf_counter()
-    with plain_mask_refused(), plain_trip_refused():
+    with plain_mask_refused(), plain_trip_refused(), plain_combination_refused():
         n = truncation_audit.audit(make_config(3), AUDIT_BATCH, AUDIT_STEPS, device)
     board_steps = AUDIT_BATCH * AUDIT_STEPS
     check(n * 10000 < board_steps, f"phase 21: {n} truncated board-steps of {board_steps}")
@@ -1902,7 +2098,8 @@ def main() -> int:
         per_sm = {}
         for R, C in ((10, 10), (36, 36)):
             fn = getattr(cuda_build.load(src, cuda_build.shape_of(R, C)), f"tmt_{name}_occupancy")
-            args = (R, C, 6) if name == "specials_trip" else (R, C)  # K4: and 6 colours
+            # K4 and K5: and 6 colours
+            args = (R, C, 6) if name in ("specials_trip", "combination_trip") else (R, C)
             fn.argtypes = [ctypes.c_int] * len(args)
             fn.restype = ctypes.c_int
             per_sm[f"{R}x{C}"] = fn(*args)
@@ -1912,18 +2109,19 @@ def main() -> int:
     # 3. kernels against their plain versions
     rec = check_kernels(device, smi)
 
-    # 4-8. the main paths, with the plain settled mask and the plain trip
-    # refused on the card
-    with plain_mask_refused(), plain_trip_refused():
+    # 4-8. the main paths, with the plain settled mask, the plain trip and
+    # the plain combination branch refused on the card
+    with plain_mask_refused(), plain_trip_refused(), plain_combination_refused():
         launches = main_paths(device, smi)
-    print("phases 4-8 ok: the plain settled mask and the plain trip ran on no CUDA tensor")
+    print("phases 4-8 ok: the plain settled mask, the plain trip and the plain combination "
+          "branch ran on no CUDA tensor")
 
     # 9-15. the training path
-    with plain_mask_refused(), plain_trip_refused():
+    with plain_mask_refused(), plain_trip_refused(), plain_combination_refused():
         training_path(device, smi)
 
     # 16-19. the scale-out layer, debug checks and throughput
-    with plain_mask_refused(), plain_trip_refused():
+    with plain_mask_refused(), plain_trip_refused(), plain_combination_refused():
         scale_out(device, smi)
 
     # 20. the port's bench on every config, each in its own process

@@ -1,0 +1,361 @@
+"""The combination branch of a move (K5): the port's plain branch against the
+JAX package's combination round, and K5's board program built for the host
+against the plain branch; the activation machine K4 and K5 share, built for
+the host, against the plain machine.
+
+``engine.combination_branch`` (the combination match, the eliminations,
+gravity, ``key, kd = split(key)`` and the refill from ``kd``) equals the
+per-board body ``one`` of the JAX package's combination round
+(tile_match_tpu/envs/fused.py:469-480, jitted and vmapped) in every output,
+the key included, with every special set ``EnvConfig.create`` accepts, on
+boards with sprinkled specials whose swap cells are painted with all 25
+ordered pairs of kinds; boards whose flag is clear come back unchanged with
+zero counts.  ``csrc/combination.cu`` compiled as plain C++
+(``-DTMT_HOST_BUILD``, as ``test_torch_kernels_host.py`` builds K1-K3)
+equals the plain branch on the same boards, in fixed-shape libraries and at
+36x36 (the library of any shape), with caps tight enough that each fires
+and raises the plain branch's ``debug_checks`` message, and on the
+recorded combination fixtures; its ``tmt_run_machine_host`` (the machine
+of ``csrc/machine.cuh`` alone) equals ``ops.activate.run_machine`` for
+every frame op, on sprinkled boards and on the recorded activation
+fixtures.  ``test_torch_kernels_cuda.py`` holds the kernel itself on the
+card.
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_combination_trip.py -q
+"""
+
+import ctypes
+import dataclasses
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from chip_smoke import combination_inputs
+from tests.test_torch_kernels_host import _host_build
+from tests.test_torch_specials import sprinkled
+from tests.test_torch_trip_sp import SET_IDS, SETS, SIZES, _cfgs, _kinds
+from tile_match_tpu.ops.board_ops import apply_refill as j_refill
+from tile_match_tpu.ops.board_ops import draw_colour_grid as j_draw
+from tile_match_tpu.ops.board_ops import gravity as j_gravity
+from tile_match_tpu.ops.combination import combination_match as j_comb
+from tile_match_tpu_torch import engine
+from tile_match_tpu_torch.config import EnvConfig
+from tile_match_tpu_torch.ops import activate as tact
+from tile_match_tpu_torch.ops import combination
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ["colour", "kind", "key", "elim", "act", "ovf"]
+B = 130
+ALL = SETS[-1]
+FIX = json.load(open(os.path.join(ROOT, "tests", "mechanic_fixtures.json")))
+
+
+@functools.lru_cache(maxsize=None)
+def comb_inputs(tc, seed, n=B):
+    """``chip_smoke.combination_inputs`` with the config's special kinds
+    sprinkled: the swap cells hold the 25 ordered pairs of kinds in turn.
+    Returns numpy (colour, kind, keys uint32[n, 2], coord1, coord2 int32[n,
+    2], comb bool[n]); cached, read-only."""
+    t = combination_inputs(tc.num_rows, tc.num_cols, tc.num_colours, n, seed, "cpu",
+                           kinds=tuple(_kinds(tc)))
+    out = [a.numpy() for a in t]
+    out[2] = out[2].astype(np.uint32)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_one(jc):
+    """The JAX package's per-board combination round (fused.py:469-480),
+    jitted and vmapped."""
+    def one(colour, kind, c1, c2, key):
+        colour2, kind2, act, ovf = j_comb(jc, colour, kind, c1, c2)
+        elim = jc.flat_size - jnp.count_nonzero(kind2).astype(jnp.int32)
+        colour2, kind2 = j_gravity(colour2, kind2)
+        key2, kd = jax.random.split(key)
+        colour2, kind2 = j_refill(colour2, kind2, j_draw(kd, jc))
+        return colour2, kind2, key2, elim, act, ovf
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_branch(jc, colour, kind, keys, c1, c2, comb):
+    """JAX's round on the flagged boards; the others unchanged, zero counts."""
+    out = [np.asarray(o) for o in _jax_one(jc)(*(jnp.asarray(a) for a in (colour, kind, c1, c2, keys)))]
+    b3, b2 = comb[:, None, None], comb[:, None]
+    return [np.where(b3, out[0], colour), np.where(b3, out[1], kind),
+            np.where(b2, out[2], keys).astype(np.int64), np.where(comb, out[3], 0),
+            np.where(comb, out[4], 0), np.where(comb, out[5], False)]
+
+
+def _torch(colour, kind, keys, c1, c2, comb):
+    return (torch.from_numpy(colour), torch.from_numpy(kind), torch.from_numpy(keys.astype(np.int64)),
+            torch.from_numpy(c1), torch.from_numpy(c2), torch.from_numpy(comb))
+
+
+def plain(tc, *inputs):
+    return engine.combination_branch(tc, *_torch(*inputs))
+
+
+def _assert_equal(got, want, tag, names=NAMES):
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{tag}: {name}"
+
+
+def _set_cfgs(i, **kw):
+    R, C, K = SIZES[i % len(SIZES)]
+    return _cfgs(R, C, K, SETS[i], **kw)
+
+
+@pytest.mark.parametrize("i", range(len(SETS)), ids=SET_IDS)
+def test_plain_branch_matches_jax(i):
+    jc, tc = _set_cfgs(i)
+    inputs = comb_inputs(tc, seed=200 + i)
+    want = jax_branch(jc, *inputs)
+    got = plain(tc, *inputs)
+    for name, g, w in zip(NAMES, got, want):
+        g = g.numpy()
+        assert g.dtype == w.dtype and np.array_equal(g, w), f"{SET_IDS[i]}: {name}"
+    comb = inputs[5]
+    assert 0 < int(comb.sum()) < B
+    assert int(got[4].sum()) > 0 and int(got[3].sum()) > 0
+
+
+# ---- K5's board program, built for the host -----------------------------------
+
+
+def _k5_fn(lib):
+    fn = lib.tmt_combination_trip_host
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _host_build(tmp_path_factory, "combination")
+
+
+def run_k5(fn, cfg, colour, kind, keys, c1, c2, comb):
+    """K5's host build on numpy inputs: (the six outputs, cap bits, frames
+    live), torch tensors."""
+    colour, kind, keys, c1, c2, comb = _torch(colour, kind, keys, c1, c2, comb)
+    n, R, C = colour.shape
+    out = [torch.empty_like(colour), torch.empty_like(kind), torch.empty_like(keys)]
+    out += [torch.empty(n, dtype=torch.int32) for _ in range(2)]
+    ovf = torch.empty(n, dtype=torch.bool)
+    caps = torch.empty(n, dtype=torch.int32)
+    live = torch.empty(n, dtype=torch.int32)
+    err = fn(colour.data_ptr(), kind.data_ptr(), keys.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+             comb.data_ptr(), *(t.data_ptr() for t in out), ovf.data_ptr(), caps.data_ptr(),
+             live.data_ptr(), n, R, C, cfg.num_colours, cfg.stack_max, cfg.activation_steps_max)
+    assert err == 0
+    return (*out, ovf), caps, live
+
+
+@pytest.mark.parametrize("i", range(len(SETS)), ids=SET_IDS)
+def test_board_program_matches_plain(host_lib, i):
+    _, tc = _set_cfgs(i)
+    inputs = comb_inputs(tc, seed=200 + i)
+    got, caps, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    _assert_equal(got, plain(tc, *inputs), SET_IDS[i])
+    assert int(caps.sum()) == 0
+
+
+def test_unflagged_boards_come_back_unchanged(host_lib):
+    _, tc = _set_cfgs(len(SETS) - 1)
+    colour, kind, keys, c1, c2, comb = comb_inputs(tc, seed=5)
+    got, caps, live = run_k5(_k5_fn(host_lib), tc, colour, kind, keys, c1, c2, np.zeros_like(comb))
+    _assert_equal(got, _torch(colour, kind, keys, c1, c2, comb)[:3], "unflagged", NAMES[:3])
+    for t in (*got[3:], caps, live):
+        assert not t.any()
+
+
+@pytest.mark.parametrize("R,C,K,specials", [(10, 10, 4, ALL),
+                                            (9, 7, 2, (("cookie",), ("vertical_laser",)))])
+def test_fixed_shape_library_matches_plain(tmp_path_factory, R, C, K, specials):
+    """The libraries of one board shape (geometry fixed at compile time), as
+    the card builds them for boards up to 32 by 32."""
+    fn = _k5_fn(_host_build(tmp_path_factory, "combination", (R, C)))
+    _, tc = _cfgs(R, C, K, specials)
+    inputs = comb_inputs(tc, seed=R * C)
+    got, _, _ = run_k5(fn, tc, *inputs)
+    _assert_equal(got, plain(tc, *inputs), f"{R}x{C}")
+    narrow = tuple(np.ascontiguousarray(a[:, :, :-1]) if a.ndim == 3 else a for a in inputs)
+    with pytest.raises(AssertionError):  # another shape is refused
+        run_k5(fn, tc, *narrow)
+
+
+def test_board_program_36x36(host_lib):
+    """Above 32x32: the library whose geometry is read at run time (a
+    laser's 36 cells take two votes on the card)."""
+    _, tc = _cfgs(36, 36, 6, ALL)
+    inputs = comb_inputs(tc, seed=36, n=50)
+    got, _, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    _assert_equal(got, plain(tc, *inputs), "36x36")
+    assert int(got[4].sum()) > 0
+
+
+def _plain_error(tc, inputs):
+    try:
+        plain(dataclasses.replace(tc, debug_checks=True), *inputs)
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+def _k5_error(tc, caps, live):
+    try:
+        combination.raise_caps(dataclasses.replace(tc, debug_checks=True), caps, live)
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+@pytest.mark.parametrize("kw,bit", [(dict(max_stack=2), combination.CAP_STACK),
+                                    (dict(max_activation_steps=3), combination.CAP_STEPS),
+                                    (dict(max_stack=2, max_activation_steps=3), None)],
+                         ids=["stack2", "steps3", "stack2-steps3"])
+def test_caps_fire_as_in_plain(host_lib, kw, bit):
+    """Tight caps: the outputs and ``ovf`` equal the plain branch's where
+    caps fire, and the first cap's message is the plain branch's."""
+    _, tc = _cfgs(8, 8, 3, ALL, **kw)
+    inputs = comb_inputs(tc, seed=8)
+    got, caps, live = run_k5(_k5_fn(host_lib), tc, *inputs)
+    _assert_equal(got, plain(tc, *inputs), str(kw))
+    message = _plain_error(tc, inputs)
+    assert message and _k5_error(tc, caps, live) == message
+    if bit is not None:
+        assert bool((caps & bit).any()) and bool(got[5][caps > 0].all())
+    fired = caps > 0
+    assert bool((live[fired & ((caps & combination.CAP_STEPS) > 0)] > 0).all())
+
+
+@pytest.mark.parametrize("fx", FIX["combination"], ids=[f["name"] for f in FIX["combination"]])
+def test_combination_fixture(host_lib, fx):
+    """The recorded combination matches of the original game: K5 equals the
+    plain branch, and counts the recorded activations."""
+    cfg = EnvConfig.create(fx["rows"], fx["cols"], fx["colours"], 10)
+    colour, kind = (np.asarray(ch, np.int32)[None] for ch in fx["before"])
+    inputs = (colour, kind, np.array([[7, 9]], np.uint32), np.array([fx["coord1"]], np.int32),
+              np.array([fx["coord2"]], np.int32), np.ones(1, bool))
+    got, _, _ = run_k5(_k5_fn(host_lib), cfg, *inputs)
+    _assert_equal(got, plain(cfg, *inputs), fx["name"])
+    assert int(got[4][0]) == fx["num_specials_activated"], fx["name"]
+
+
+def test_wrapper_runs_the_plain_branch_on_the_cpu():
+    _, tc = _set_cfgs(len(SETS) - 1)
+    t = _torch(*comb_inputs(tc, seed=3, n=40))
+    before = combination.launches
+    _assert_equal(combination.combination_trip(tc, *t), engine.combination_branch(tc, *t), "cpu")
+    assert combination.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        combination.combination_trip(tc, *(x.to("meta") for x in t))
+
+
+# ---- the shared activation machine alone, built for the host ------------------
+
+OPS = {"v_laser": tact.OP_V_LASER, "h_laser": tact.OP_H_LASER, "bomb": tact.OP_BOMB,
+       "cookie": tact.OP_COOKIE, "maskscan": tact.OP_MASKSCAN, "bomb2": tact.OP_BOMB2}
+
+
+def _machine_fn(lib):
+    fn = lib.tmt_run_machine_host
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def run_machine_host(fn, cfg, colour, kind, seeds):
+    """``tmt_run_machine_host`` on numpy boards with one seed frame each
+    (op, row, column, scan index, colour, counted): (colour, kind, count,
+    ovf, frames live), cap bits."""
+    colour, kind = torch.from_numpy(colour), torch.from_numpy(kind)
+    seeds = torch.from_numpy(np.ascontiguousarray(seeds, np.int32))
+    n, R, C = colour.shape
+    out = [torch.empty_like(colour), torch.empty_like(kind), torch.empty(n, dtype=torch.int32),
+           torch.empty(n, dtype=torch.bool)]
+    caps = torch.empty(n, dtype=torch.int32)
+    live = torch.empty(n, dtype=torch.int32)
+    err = fn(colour.data_ptr(), kind.data_ptr(), seeds.data_ptr(), *(t.data_ptr() for t in out),
+             caps.data_ptr(), live.data_ptr(), n, R, C, cfg.num_colours, cfg.stack_max,
+             cfg.activation_steps_max)
+    assert err == 0
+    return (*out, live), caps
+
+
+def plain_machine(cfg, colour, kind, seeds):
+    """``ops.activate``'s machine from the same seed frames."""
+    s = torch.from_numpy(np.ascontiguousarray(seeds, np.int32))
+    st = tact.machine_init(cfg, torch.from_numpy(colour), torch.from_numpy(kind))
+    st = tact.push_frame(st, s[:, 0], s[:, 1], s[:, 2], s[:, 5], pred=True, idx=s[:, 3],
+                         fcolour=s[:, 4])
+    st = tact.run_machine(cfg, st)
+    return st.colour, st.kind, st.count, st.ovf, st.sp
+
+
+def _seeds(cfg, kind, op, rng):
+    """One seed frame a board: op at a random cell; a real special not
+    entered yet and counted, a 5x5 sweep or a mask scan from a random scan
+    index, uncounted, the mask scan of a random colour."""
+    n, R, C = kind.shape
+    real = op in (tact.OP_V_LASER, tact.OP_H_LASER, tact.OP_BOMB, tact.OP_COOKIE)
+    rows, cols = rng.integers(0, R, n), rng.integers(0, C, n)
+    idx = np.full(n, -1) if real else rng.integers(0, R * C // 2, n)
+    col = rng.integers(1, cfg.num_colours + 1, n) if op == tact.OP_MASKSCAN else np.zeros(n, int)
+    return np.stack([np.full(n, op), rows, cols, idx, col, np.full(n, int(real))], 1)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(max_stack=2, max_activation_steps=3)],
+                         ids=["default", "tight"])
+@pytest.mark.parametrize("op", OPS)
+def test_machine_matches_plain(host_lib, op, kw):
+    """Each frame op seeded on boards with many specials, 10x10 and 36x36
+    (where a laser's line takes two votes on the card): the same boards,
+    counts, ``ovf`` and frames live; under tight caps the same first
+    ``debug_checks`` message."""
+    fn = _machine_fn(host_lib)
+    for R, C, K, n in ((10, 10, 4, 120), (36, 36, 6, 16)):
+        _, tc = _cfgs(R, C, K, ALL, **kw)
+        colour, kind = sprinkled(R, C, K, n, seed=R + len(op), n_max=R * C // 4)
+        seeds = _seeds(tc, kind, OPS[op], np.random.default_rng(R * 7 + len(op)))
+        got, caps = run_machine_host(fn, tc, colour, kind, seeds)
+        want = plain_machine(tc, colour, kind, seeds)
+        _assert_equal(got, want, f"{op} {R}x{C} {kw}", ["colour", "kind", "count", "ovf", "live"])
+        assert int((got[0] == 0).sum()) > int((colour == 0).sum())  # the machine deleted cells
+        if kw:
+            assert int(caps.sum()) > 0
+            assert _k5_error(tc, caps, got[4]) == _plain_machine_error(tc, colour, kind, seeds)
+
+
+def _plain_machine_error(cfg, colour, kind, seeds):
+    try:
+        plain_machine(dataclasses.replace(cfg, debug_checks=True), colour, kind, seeds)
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+@pytest.mark.parametrize("fx", FIX["activation"], ids=[f["name"] for f in FIX["activation"]])
+def test_machine_activation_fixture(host_lib, fx):
+    """The recorded activations of the original game, from the special at
+    the fixture's cell, counted."""
+    cfg = EnvConfig.create(fx["rows"], fx["cols"], fx["colours"], 10)
+    colour, kind = (np.asarray(ch, np.int32)[None] for ch in fx["before"])
+    r, c = fx["coord"]
+    seeds = np.array([[kind[0, r, c], r, c, -1, 0, 1]], np.int32)
+    got, _ = run_machine_host(_machine_fn(host_lib), cfg, colour, kind, seeds)
+    _assert_equal(got, plain_machine(cfg, colour, kind, seeds), fx["name"],
+                  ["colour", "kind", "count", "ovf", "live"])
+    want_col, want_kin = (np.asarray(ch, np.int32) for ch in fx["after"])
+    assert np.array_equal(got[0][0].numpy(), want_col) and np.array_equal(got[1][0].numpy(), want_kin)
+    assert int(got[2][0]) == fx["num_specials_activated"], fx["name"]

@@ -23,6 +23,7 @@ from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv, random_effective
 from tile_match_tpu_torch.ops import cascade as tcas
 from tile_match_tpu_torch.ops import cascade_sp as tsp
+from tile_match_tpu_torch.ops import combination as tcomb
 from tile_match_tpu_torch.ops import mask_sp as tmask
 from tile_match_tpu_torch.ops import trip_sp as ttrip
 from tile_match_tpu_torch.ops.effective import effective_mask_settled
@@ -39,9 +40,10 @@ def _libraries():
     """Build every kernel library the tests run at once, one nvcc each (the
     cascades take their board shape at compile time)."""
     if torch.cuda.is_available():
-        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES + K4_CASES}
+        shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES + K4_CASES
+                  + K5_CASES}
         cuda_build.build_all([(src, cuda_build.shape_of(R, C))
-                              for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp")
+                              for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp", "combination")
                               for R, C in shapes])
 
 
@@ -415,3 +417,80 @@ def test_specials_cascade_runs_every_full_trip_on_k4(cuda_device):
     want = engine.fused_specials_cascade(cfg, colour.cpu(), kind.cpu(), keys.cpu())
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+COMB_NAMES = ["colour", "kind", "key", "elim", "act", "ovf"]
+# K5: (R, C, K, B, config overrides)
+K5_CASES = [(10, 10, 4, 4096, {}), (36, 36, 6, 64, {}), (10, 10, 3, 1024, {"max_stack": 2}),
+            (10, 10, 3, 1024, {"max_activation_steps": 8})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,B,caps", K5_CASES)
+def test_combination_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, caps):
+    """On boards whose swap cells hold every ordered pair of kinds, flagged
+    and not, under tight caps too."""
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(_specials(R, C, K), **caps)
+    inputs = smoke.combination_inputs(R, C, K, B, seed=R + B, device=cuda_device)
+    before = tcomb.launches
+    got = tcomb.combination_trip(cfg, *inputs)
+    torch.cuda.synchronize()
+    assert tcomb.launches == before + 1
+    want = engine.combination_branch(cfg, *inputs)
+    for g, w, name in zip(got, want, COMB_NAMES):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if caps:
+        assert bool(got[5].any())  # the cap fired
+
+
+@pytest.mark.cuda
+def test_combination_trip_caps_raise_on_card(cuda_device):
+    """With debug_checks, each cap raises through K5 the plain branch's
+    message on the same boards."""
+    inputs = _chip_smoke().combination_inputs(8, 8, 3, 256, seed=19, device="cpu")
+    for kw in (dict(max_stack=2), dict(max_activation_steps=3)):
+        cfg = _specials(8, 8, 3, debug_checks=True, **kw)
+        with pytest.raises(RuntimeError) as want:
+            tcomb.combination_trip(cfg, *inputs)
+        with pytest.raises(RuntimeError) as got:
+            tcomb.combination_trip(cfg, *(t.to(cuda_device) for t in inputs))
+        assert str(got.value) == str(want.value), kw
+
+
+@pytest.mark.cuda
+def test_combination_trip_refuses_bad_input(cuda_device):
+    cfg = _specials(6, 6, 3)
+    colour, kind, keys, c1, c2, comb = _chip_smoke().combination_inputs(6, 6, 3, 4, seed=0,
+                                                                        device=cuda_device)
+    with pytest.raises(ValueError):
+        tcomb.combination_trip(cfg, colour.long(), kind, keys, c1, c2, comb)
+    with pytest.raises(ValueError):
+        tcomb.combination_trip(cfg, colour, kind, keys[:3], c1, c2, comb)
+    with pytest.raises(ValueError):  # not contiguous
+        tcomb.combination_trip(cfg, colour.transpose(1, 2), kind.transpose(1, 2), keys, c1, c2,
+                               comb)
+
+
+@pytest.mark.cuda
+def test_specials_env_runs_every_combination_on_k5(cuda_device):
+    """Config 3's step on the card, with the plain branch refused there,
+    equals the step on the CPU over ten steps."""
+    smoke = _chip_smoke()
+    cfg = _specials(10, 10, 4)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        env = BatchedTileMatchEnv(cfg, 512, device=dev)
+        states, ts = env.reset(trandom.PRNGKey(3, dev))
+        gen = torch.Generator().manual_seed(4)  # the actions drawn on the CPU for both
+        before = tcomb.launches
+        with smoke.plain_combination_refused():
+            for _ in range(10):
+                mask = ts.info.effective_actions.cpu()
+                actions = torch.where(mask, torch.rand(mask.shape, generator=gen), -1.0).argmax(-1)
+                states, ts = env.step(states, actions.to(dev))
+        outs.append((states.colour.cpu(), states.kind.cpu(), states.key.cpu(), ts.reward.cpu()))
+        if dev.type == "cuda":
+            assert tcomb.launches == before + 10
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)

@@ -23,8 +23,8 @@ the recorded JAX rollout of the config replays bit for bit, then the step
 on the card equals the same step on the CPU, and without specials K1
 equals its plain version at the bench's batch).  If the gate fails, the
 bench raises and prints no metric.  It then fails unless the timed windows
-launched the kernels of the config's path: K1 without specials, K2 and K3
-with them.
+launched the kernels of the config's path: K1 without specials; K5, K2,
+K4 and K3 with them.
 
 Lines before the last: the card's name and power limit, the gate's lines,
 each window's seconds and whether it held the auto-reset step (every
@@ -65,7 +65,7 @@ CONFIGS = [
 CONFIG_BATCH = [32768, 16384, 16384, 16384, 8192]
 # the kernels each config's step must launch
 PATH_KERNELS = {False: ("fused_cascade",),
-                True: ("cascade_sp_chunk", "specials_trip", "settled_mask_sp")}
+                True: ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")}
 
 
 def make_config(idx: int):

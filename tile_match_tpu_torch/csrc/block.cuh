@@ -371,6 +371,13 @@ struct Warps {
     else
       return across(r, [](int a, int b) { return a > b ? a : b; });
   }
+  TMT_DEV int lanes_min(int v) const {
+    const int r = __reduce_min_sync(kFull, v);
+    if constexpr (kW == 1)
+      return r;
+    else
+      return across(r, [](int a, int b) { return a < b ? a : b; });
+  }
 };
 using Warp = Warps<1>;
 
@@ -381,6 +388,7 @@ struct Warps {
   int n;
   int tid;
   int* red;
+  void sync() const {}
   template <class F>
   void each(F f) const {
     for (int i = 0; i < n; ++i) f(i);
@@ -441,6 +449,7 @@ struct Warps {
   int lanes_sum(int v) const { return v; }
   int lanes_or(int v) const { return v; }
   int lanes_max(int v) const { return v; }
+  int lanes_min(int v) const { return v; }
 };
 using Warp = Warps<1>;
 

@@ -37,22 +37,30 @@ TMT_HOST_DEV uint32_t randint_mult(uint32_t K) {
 // The refill draw of one trip: jax.random.randint(fold_in(sub, t), (R, C),
 // 1, K + 1).  The folded key and its two halves are the same for every cell
 // of the trip, so they are hashed once (three hashes); each cell then takes
-// two more, at its own flat index.
+// two more, at its own flat index.  (The combination branch draws
+// randint(kd, (R, C), 1, K + 1) with kd its own key's split: the halves of
+// split(kd).)
 struct RefillKeys {
   uint32_t a0, a1, b0, b1;
 };
 
-TMT_DEV RefillKeys refill_keys(uint32_t s0, uint32_t s1, uint32_t t) {
-  uint32_t f0 = 0, f1 = t;
-  threefry2x32(s0, s1, f0, f1);  // fold_in
+// jax.random.split(key) (tile_match_tpu_torch/random.py `split`): key
+// (k0, k1) gives the two keys (a0, a1) and (b0, b1), word for word.
+TMT_DEV RefillKeys split(uint32_t k0, uint32_t k1) {
   RefillKeys k;
   k.a0 = 0;
   k.a1 = 0;
-  threefry2x32(f0, f1, k.a0, k.a1);  // split: first key
+  threefry2x32(k0, k1, k.a0, k.a1);  // first key
   k.b0 = 0;
   k.b1 = 1;
-  threefry2x32(f0, f1, k.b0, k.b1);  // split: second key
+  threefry2x32(k0, k1, k.b0, k.b1);  // second key
   return k;
+}
+
+TMT_DEV RefillKeys refill_keys(uint32_t s0, uint32_t s1, uint32_t t) {
+  uint32_t f0 = 0, f1 = t;
+  threefry2x32(s0, s1, f0, f1);  // fold_in
+  return split(f0, f1);
 }
 
 // 32 bits of the draw with key (k0, k1) at the cell's counter.

@@ -55,11 +55,15 @@ struct Lines {
   uint32_t *elv, *erv;       // the same upwards / downwards (cm)
   uint32_t *ch, *cv, *cvc;   // horizontal / vertical candidates (rm), vertical candidates (cm)
 
-  TMT_HOST_DEV void carve(Arena& a, int R, int C) {
+  // the geometry alone (a board program that detects no lines)
+  TMT_HOST_DEV void shape(int R, int C) {
     R_ = R;
     C_ = C;
     inv_r = reciprocal(R);
     inv_c = reciprocal(C);
+  }
+  TMT_HOST_DEV void carve(Arena& a, int R, int C) {
+    shape(R, C);
     const int w = mask_words(R * C);
     uint32_t** m[15] = {&eh, &ev, &t3, &vb, &mh, &mv, &p, &pc, &el, &er, &elv, &erv, &ch, &cv, &cvc};
     for (int q = 0; q < 15; ++q) *m[q] = a.take<uint32_t>(w);
@@ -271,17 +275,19 @@ struct KeyRing {
   }
 };
 
-// Refills the empty cells of x (and k) with trip t's draw.  The empty cells
-// are compacted into q first.  On the card each empty cell takes its two
-// words from a pair of lanes, the first key's in the even lane and the
-// second key's in the odd one: the j-th empty cell goes to threads 2j and
-// 2j + 1 (mod the board's threads), and the hashes run on full lanes.
-template <class W>
-TMT_DEV void refill(const W& w, int n, int* x, int* k, uint16_t* q, KeyRing& ring, uint32_t s0,
-                    uint32_t s1, int t, uint32_t K, uint32_t mult) {
+// Refills the empty cells of x (and k) with the draw whose four key words
+// (RefillKeys' order) `key_of()` gives, asked only when a cell is empty.
+// The empty cells are compacted into q first.  On the card each empty cell
+// takes its two words from a pair of lanes, the first key's in the even
+// lane and the second key's in the odd one: the j-th empty cell goes to
+// threads 2j and 2j + 1 (mod the board's threads), and the hashes run on
+// full lanes.
+template <class W, class KeyOf>
+TMT_DEV void refill_from(const W& w, int n, int* x, int* k, uint16_t* q, KeyOf key_of, uint32_t K,
+                         uint32_t mult) {
   const int m = w.compact(n, q, [&](int i) { return x[i] == 0 && (k == nullptr || k[i] == 0); });
   if (m == 0) return;
-  const uint32_t* key = ring.of(w, s0, s1, t);
+  const uint32_t* key = key_of();
 #ifdef __CUDACC__
   const uint32_t half = static_cast<uint32_t>(w.tid) & 1u;
   const uint32_t k0 = key[2 * half], k1 = key[2 * half + 1];
@@ -304,6 +310,13 @@ TMT_DEV void refill(const W& w, int n, int* x, int* k, uint16_t* q, KeyRing& rin
     if (k != nullptr) k[i] = 1;
   });
 #endif
+}
+
+// The same with trip t's draw (sub key (s0, s1)).
+template <class W>
+TMT_DEV void refill(const W& w, int n, int* x, int* k, uint16_t* q, KeyRing& ring, uint32_t s0,
+                    uint32_t s1, int t, uint32_t K, uint32_t mult) {
+  refill_from(w, n, x, k, q, [&] { return ring.of(w, s0, s1, t); }, K, mult);
 }
 
 }  // namespace tmt

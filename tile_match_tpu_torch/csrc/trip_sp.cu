@@ -25,26 +25,32 @@
 //   3. resolution (ops/resolve.py `resolve_colour_matches`): creation
 //      positions in match order before any deletion (`_creation_pos`),
 //      then match by match the deletions and, for every special met, the
-//      activation stack machine (ops/activate.py `machine_step`: entry,
-//      the scan of the region up to its next special, push or pop; a push
-//      onto a full stack of `stack_max` frames is dropped, kCapStack);
-//      then the new specials;
+//      activation stack machine (csrc/machine.cuh, ops/activate.py
+//      `machine_step`: entry, the scan of the region up to its next
+//      special, push or pop; a push onto a full stack of `stack_max`
+//      frames is dropped, kCapStack); then the new specials;
 //   4. eliminations (empty cells after resolution), stable gravity of
 //      both channels and the refill with randint(fold_in(sub, trips),
 //      (R, C), 1, K + 1), JAX's threefry (csrc/threefry.cuh).
 // A trip has no step budget: `activation_steps_max` caps the combination
-// branch's machine only (ops/activate.py `run_machine`).
+// branch's machine only (ops/activate.py `run_machine`, K5).
 //
 // What bounds it on the card: not memory (a 10x10 board is 800 bytes in
 // and ~820 out) and not arithmetic, but the chain of dependent steps of
 // one board: the classification and the activation machine are a greedy
 // order, one decision after another, each reading the board as the last
-// left it.  The design, simple first:
+// left it.  A launch lasts as long as its longest board.  The design:
 //   - one warp per board (`Warp`, csrc/block.cuh); detection (the cell bit
 //     masks of csrc/trip.cuh), the eliminations, gravity and the refill
-//     run on the whole warp; the ordered line list, the classification,
-//     the resolution and the machine run on lane 0, as the serial program
-//     they are, reading the detection masks for run lengths;
+//     run on the whole warp; the ordered line list and the classification
+//     run on lane 0, as the greedy serial program they are, reading the
+//     detection masks for run lengths;
+//   - resolution runs on the whole warp: every lane takes the same
+//     decisions (the next match's first special, push, pop) and the lanes
+//     share the work: a match's cells are deleted 32 at a time, and the
+//     activation machine (csrc/machine.cuh, shared with K5) scans a
+//     region with one vote a 32 cells and deletes its normals at once;
+//     the creation cells and the new specials stay on lane 0;
 //   - the board's scratch (line queue, matches, stack of `stack_max`
 //     frames) sized from the config's caps, in shared memory when it fits
 //     the block's opt-in limit and in a device buffer the wrapper hands in
@@ -57,17 +63,17 @@
 // Limits: at most 65,535 cells a board (16-bit cell indices of the refill).
 #define TMT_NO_UNROLL
 
-#include "trip.cuh"
+#include "machine.cuh"
 
 namespace tmt {
 
 constexpr int kBig = 1 << 30;  // ops/runs.py BIG
-// which cap fired (the debug-checks sites of the JAX package)
-constexpr int kCapLines = 1, kCapQueue = 2, kCapEmit = 4, kCapStack = 8;
-// match codes and kinds (config.py)
+// which cap fired (the debug-checks sites of the JAX package; the
+// activation stack's is machine.cuh's kCapStack)
+constexpr int kCapLines = 1, kCapQueue = 2, kCapEmit = 4;
+// match codes (config.py)
 constexpr int kMatchNormal = 1, kMatchVLaser = 2, kMatchHLaser = 3, kMatchBomb = 4,
               kMatchCookie = 5;
-constexpr int kKindNormal = 1, kKindV = 2, kKindH = 3, kKindBomb = 4, kKindCookie = -1;
 
 struct TripConfig {
   int R, C, K, LM, SM;  // lines_max, stack_max
@@ -99,7 +105,9 @@ struct TripSmem {
   // the matches, lm2 of cm cells, and their creation cells
   int *cells, *len, *type, *col, *qcell;
   // the activation stack, SM frames
-  int *f_op, *f_cell, *f_idx, *f_col, *f_cnt;
+  Frames frames;
+  // the serial part's results for the warp: matches, cap bits, lines, created
+  int* meta;
 
   TMT_HOST_DEV size_t carve(unsigned char* base, const TripConfig& cf) {
     const int n = cf.R * cf.C, w = mask_words(n), LM2 = cf.lm2(), CM = cf.cm();
@@ -123,8 +131,8 @@ struct TripSmem {
     cells = a.take<int>(static_cast<size_t>(LM2) * CM);
     int** match[3] = {&len, &type, &col};
     for (auto p : match) *p = a.take<int>(LM2);
-    int** frame[5] = {&f_op, &f_cell, &f_idx, &f_col, &f_cnt};
-    for (auto p : frame) *p = a.take<int>(cf.SM);
+    frames.carve(a, cf.SM);
+    meta = a.take<int>(4);
     return (a.used + 15) & ~static_cast<size_t>(15);
   }
 };
@@ -139,17 +147,15 @@ struct TripResult {
   int act, created, ovf, caps, lines;
 };
 
-TMT_DEV bool is_special(int kd) { return kd != 0 && kd != kKindNormal; }
 TMT_DEV int iabs(int v) { return v < 0 ? -v : v; }
 
-// The serial part of a trip, on one thread: lines, classification,
-// resolution.  Leaves the resolved board in s.x / s.k.
+// The serial parts of a trip, on lane 0: lines, classification, and the
+// creation cells and new specials of resolution.
 template <class Ln>
 struct Serial {
   TripSmem<Ln>& s;
   const TripConfig& cf;
-  int gen;    // the stamp of the current use of s.mark
-  int alive;  // cells of nonzero colour
+  int gen;  // the stamp of the current use of s.mark
 
   TMT_DEV int row(int i) const { return s.L.row(i); }
   TMT_DEV int col(int i) const { return s.L.col(i); }
@@ -409,17 +415,7 @@ struct Serial {
     return E;
   }
 
-  // ---- 3. resolution ---------------------------------------------------------
-  TMT_DEV void del(int i) {
-    const int c = s.x[i];
-    if (c != 0) {
-      --alive;
-      if (c >= 1 && c <= cf.K) --s.ccount[c];
-    }
-    s.x[i] = 0;
-    s.k[i] = 0;
-  }
-
+  // ---- 3. resolution (its serial parts) -------------------------------------
   // One special match's creation cell (`_creation_pos`).
   TMT_DEV int creation_cell(int m) {
     const int* c = s.cells + m * cf.cm();
@@ -465,96 +461,8 @@ struct Serial {
     return best < 0 ? c[0] : c[best];
   }
 
-  TMT_DEV void push(int& sp, int op, int cell, int counted, int& ovf) {
-    if (sp < cf.SM) {
-      s.f_op[sp] = op;
-      s.f_cell[sp] = cell;
-      s.f_idx[sp] = -1;
-      s.f_col[sp] = 0;
-      s.f_cnt[sp] = counted;
-      ++sp;
-    } else {
-      ovf = 1;
-    }
-  }
-
-  // One micro-step of the activation machine on the top frame (sp > 0).
-  // A trip pushes real specials only (the combination branch's maskscan
-  // and 5x5 frames never reach it).
-  TMT_DEV void machine_step(int& sp, int& act, int& ovf, int& caps) {
-    const int R = cf.R, C = cf.C, n = R * C;
-    const int top = sp - 1, op = s.f_op[top], cell = s.f_cell[top];
-    const int r = row(cell), c = col(cell);
-    const bool is_real = op == kKindV || op == kKindH || op == kKindBomb || op == kKindCookie;
-    if (is_real && s.f_idx[top] < 0) {  // entry
-      if (alive == 0) {  // an empty board: return at once
-        --sp;
-        return;
-      }
-      del(cell);
-      act += s.f_cnt[top] > 0;
-      if (op == kKindCookie) {  // the most common colour; its normals go
-        int chosen = 1;
-        for (int v = 2; v <= cf.K; ++v)
-          if (s.ccount[v] > s.ccount[chosen]) chosen = v;
-        s.f_col[top] = chosen;
-        for (int i = 0; i < n; ++i)
-          if (s.x[i] == chosen && s.k[i] == kKindNormal) del(i);
-      }
-      s.f_idx[top] = 0;
-    }
-    // scan the region from f_idx in row-major order: delete its normals up
-    // to the next special (a cookie deletes nothing), then push that
-    // special, or pop when none is left
-    const int idx = s.f_idx[top], fcol = s.f_col[top];
-    int found = -1;
-    auto visit = [&](int i) {  // false ends the scan
-      if (i < idx) return true;
-      if (is_special(s.k[i])) {
-        found = i;
-        return false;
-      }
-      del(i);
-      return true;
-    };
-    if (op == kKindV) {
-      for (int rr = 0; rr < R && visit(rr * C + c); ++rr) {
-      }
-    } else if (op == kKindH) {
-      for (int cc = 0; cc < C && visit(r * C + cc); ++cc) {
-      }
-    } else if (op == kKindBomb) {
-      bool go = true;
-      for (int rr = r - 1; rr <= r + 1 && go; ++rr)
-        for (int cc = c - 1; cc <= c + 1 && go; ++cc)
-          if (rr >= 0 && rr < R && cc >= 0 && cc < C) go = visit(rr * C + cc);
-    } else {  // a cookie: the specials of its colour
-      for (int i = idx; i < n; ++i)
-        if (s.x[i] == fcol && s.k[i] > 1) {
-          found = i;
-          break;
-        }
-    }
-    if (found < 0) {
-      --sp;
-      return;
-    }
-    s.f_idx[top] = found + 1;
-    if (sp >= cf.SM) caps |= kCapStack;
-    push(sp, s.k[found], found, is_real ? 1 : 0, ovf);
-  }
-
-  TMT_DEV void resolve(int count, TripResult& res) {
-    const int n = cf.R * cf.C, CM = cf.cm(), M = count < cf.lm2() ? count : cf.lm2();
-    for (int v = 0; v <= cf.K; ++v) s.ccount[v] = 0;
-    alive = 0;
-    for (int i = 0; i < n; ++i) {
-      const int c = s.x[i];
-      alive += c != 0;
-      if (c >= 1 && c <= cf.K) ++s.ccount[c];
-      s.taken[i] = 0;
-    }
-    // 1. creation cells of the special matches, before any deletion
+  // 1. the creation cells of the special matches, before any deletion
+  TMT_DEV void creations(int M) {
     for (int m = 0; m < M; ++m) {
       s.qcell[m] = -1;
       if (s.type[m] == kMatchNormal || s.type[m] == 0) continue;
@@ -562,36 +470,11 @@ struct Serial {
       s.taken[cell] = 1;
       s.qcell[m] = cell;
     }
-    // 2. match by match: delete up to the first special, activate it
-    int sp = 0, act = 0, ovf = 0, m = 0;
-    while (sp > 0 || m < count) {
-      if (sp > 0) {
-        machine_step(sp, act, ovf, res.caps);
-        continue;
-      }
-      int ms = -1, fs = 0;
-      for (int mm = m; mm < M && ms < 0; ++mm)
-        for (int j = 0; j < s.len[mm]; ++j)
-          if (is_special(s.k[s.cells[mm * CM + j]])) {
-            ms = mm;
-            fs = j;
-            break;
-          }
-      const int upto = ms < 0 ? M : ms;
-      for (int mm = m; mm < upto; ++mm)
-        for (int j = 0; j < s.len[mm]; ++j) del(s.cells[mm * CM + j]);
-      if (ms < 0) {
-        m = count;
-        continue;
-      }
-      for (int j = 0; j < fs; ++j) del(s.cells[ms * CM + j]);
-      const int cell = s.cells[ms * CM + fs];
-      push(sp, s.k[cell], cell, 1, ovf);
-      m = ms;
-    }
-    res.act = act;
-    res.ovf |= ovf;
-    // 3. the new specials; cells that two matches picked take the sums
+  }
+
+  // 3. the new specials; cells that two matches picked take the sums.
+  // Returns their number.
+  TMT_DEV int new_specials(int M) {
     const int g = ++gen;
     int created = 0;
     for (int mm = 0; mm < M; ++mm) {
@@ -607,19 +490,64 @@ struct Serial {
       s.x[cell] += s.col[mm];
       s.k[cell] += kd;
     }
-    res.created = created;
+    return created;
   }
 
-  TMT_DEV void run(int sr0, TripResult& res) {
+  // Lines and classification; the matches' count, the cap bits and the
+  // lines detected go to s.meta.
+  TMT_DEV void matches(int sr0) {
     int total = 0;
     const int nl = lines(sr0, total);
-    res.lines = total;
-    res.caps = total > cf.LM ? kCapLines : 0;
-    const int count = classify(nl, res.caps);
-    res.ovf = res.caps != 0;
-    resolve(count, res);
+    int caps = total > cf.LM ? kCapLines : 0;
+    s.meta[0] = classify(nl, caps);
+    s.meta[1] = caps;
+    s.meta[2] = total;
   }
 };
+
+// 2. of resolution, on the whole warp: match by match, delete up to the
+// first special and run the activation machine (machine.cuh) from it.
+// Leaves the resolved board in s.x / s.k.
+template <class W, class Ln>
+TMT_DEV void resolve(const W& w, TripSmem<Ln>& s, const TripConfig& cf, Serial<Ln>& ser,
+                     TripResult& res) {
+  const int count = s.meta[0], CM = cf.cm(), M = count < cf.lm2() ? count : cf.lm2();
+  w.each([&](int i) { s.taken[i] = 0; });
+  w.each_of(1, [&](int) { ser.creations(M); });
+  Machine<W, Ln> mc{w, s.L, s.x, s.k, s.ccount, s.frames, cf.K, cf.SM};
+  mc.count_colours();
+  int m = 0;
+  while (mc.sp > 0 || m < count) {
+    if (mc.sp > 0) {
+      mc.step();
+      continue;
+    }
+    // every lane finds the same first special of the matches from m on
+    int ms = -1, fs = 0;
+    for (int mm = m; mm < M && ms < 0; ++mm)
+      for (int j = 0; j < s.len[mm]; ++j)
+        if (is_special(s.k[s.cells[mm * CM + j]])) {
+          ms = mm;
+          fs = j;
+          break;
+        }
+    const int upto = ms < 0 ? M : ms;
+    for (int mm = m; mm < upto; ++mm) mc.erase_list(s.cells + mm * CM, s.len[mm]);
+    if (ms < 0) {
+      m = count;
+      continue;
+    }
+    mc.erase_list(s.cells + ms * CM, fs);
+    const int cell = s.cells[ms * CM + fs];
+    mc.push(s.k[cell], cell, 1);
+    m = ms;
+  }
+  res.act = mc.act;
+  res.ovf |= mc.ovf;
+  res.caps |= mc.caps;
+  w.each_of(1, [&](int) { s.meta[3] = ser.new_specials(M); });
+  res.created = s.meta[3];
+}
 
 // One trip of board s.x / s.k (t: the board's trips so far; (s0, s1): its
 // sub key).  Leaves the board after refill in s.x / s.k; returns the
@@ -632,10 +560,12 @@ TMT_DEV int trip_program(const W& w, TripSmem<Ln>& s, const TripConfig& cf, uint
   w.each([&](int i) { s.mark[i] = 0; });
   const int sr0 = line_masks(w, L, s.x);
   if (sr0 >= 0) detect(w, L, sr0);
-  w.each_of(1, [&](int) {
-    Serial<Ln> ser{s, cf, 0, 0};
-    ser.run(sr0, res);
-  });
+  Serial<Ln> ser{s, cf, 0};
+  w.each_of(1, [&](int) { ser.matches(sr0); });
+  res.caps = s.meta[1];
+  res.lines = s.meta[2];
+  res.ovf = res.caps != 0;
+  resolve(w, s, cf, ser, res);
   const int elim = n - w.count([&](int i) { return s.k[i] != 0; });
   gravity(w, L, s.y, s.yk, s.x, s.k, s.emp, [&](int i) {
     s.y[i] = s.x[i];

@@ -5,7 +5,7 @@ Hopper (``sm_90a``) into ``_build/lib<name>[-RxC]-<hash>.so`` — the hash is
 of the source, of every ``csrc/*.cuh`` header it includes (directly or
 through another header) and of the flags, so an edited source or shared
 header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1 to
-K4) take their board shape at compile time: a library is built for each
+K5) take their board shape at compile time: a library is built for each
 board shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``),
 and one without a shape serves every larger board (``shape_of``).
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.

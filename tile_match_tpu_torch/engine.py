@@ -12,7 +12,9 @@ the per-board loop would leave.
 
 The cascade of a move runs on the kernels: without specials K1
 (``ops.cascade.fused_cascade``), which also hands back the settled mask;
-with specials, after the combination branch, ``fused_specials_cascade`` —
+with specials, after the combination branch (K5,
+``ops.combination.combination_trip``; its plain version
+``combination_branch``), ``fused_specials_cascade`` —
 K2 (``ops.cascade_sp.cascade_sp_chunk``) takes every board's simple trips,
 K4 (``ops.trip_sp.specials_trip``) the full-machinery trips of the others
 (detect, classify, resolve, gravity, refill; its plain version
@@ -37,7 +39,7 @@ from .ops.board_ops import apply_refill, apply_shuffle, draw_colour_grid, gravit
 from .ops.cascade import fused_cascade
 from .ops.cascade_sp import REASON_MULTI, cascade_sp_chunk
 from .ops.classify import process_colour_lines
-from .ops.combination import combination_match, is_combination
+from .ops.combination import combination_match, combination_trip, is_combination
 from .ops.lines import get_colour_lines, has_any_line, run_member_mask
 from .ops.mask_sp import settled_mask_sp
 from .ops.resolve import resolve_colour_matches
@@ -241,7 +243,8 @@ def combination_branch(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
     """The combination match of the boards where ``comb`` (`board.py:
     357-366`): the match, gravity, and a refill from ``key, k = split(key)``.
     Returns (colour, kind, key, elim, activated, ovf); other boards come
-    back unchanged with zero counts."""
+    back unchanged with zero counts.  K5's plain version
+    (``ops.combination.combination_trip``)."""
     B = colour.shape[0]
     dev = colour.device
     elim = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -267,8 +270,9 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
 
     Boards where ``eff`` is False are no-ops: board, key and ``cur_mask``
     come back unchanged.  An effective move swaps; with specials, a swap of
-    two specials or of a cookie runs the combination branch; then
-    ``key, sub = split(key)``, the cascade and the playability loop.
+    two specials or of a cookie runs the combination branch
+    (``combination_trip``, K5 on the card); then ``key, sub = split(key)``,
+    the cascade and the playability loop.
 
     The cascade is ``fused_cascade`` without specials and
     ``fused_specials_cascade`` then ``settled_mask_sp`` with them.
@@ -289,7 +293,7 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
     if cfg.any_special:
         moved_kind = torch.where(e3, sw_kind, kind)
         comb = eff & is_combination(moved_kind, coord1, coord2)
-        moved, moved_kind, key_c, comb_elim, comb_act, comb_ovf = combination_branch(
+        moved, moved_kind, key_c, comb_elim, comb_act, comb_ovf = combination_trip(
             cfg, moved, moved_kind, key, coord1, coord2, comb
         )
         both = trandom.split(key_c)

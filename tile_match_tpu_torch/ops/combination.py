@@ -7,14 +7,34 @@ machine with the case's activations — pushed in reverse execution order,
 the stack being LIFO — and runs it to completion.  The seeded activations
 are not counted (is_combination_match, `board.py:498`); their recursive
 children are.
+
+``combination_trip`` is the combination branch of a move — the match,
+gravity and a refill from ``key, kd = split(key)`` on the boards a mask
+picks — as the CUDA kernel K5 (``csrc/combination.cu``; in the JAX package
+the XLA combination round of ``batched_step_fused_sp``,
+tile_match_tpu/envs/fused.py:422-524) on CUDA tensors, and as its plain
+version ``engine.combination_branch`` on CPU tensors.  The kernel takes
+the whole batch: no compaction of the flagged boards, no host sync.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from .. import cuda_build
 from ..config import EnvConfig, KIND_BOMB, KIND_COOKIE, KIND_NORMAL
 from .activate import OP_BOMB2, OP_H_LASER, OP_MASKSCAN, OP_V_LASER, machine_init, push_frame, run_machine
+
+# Kernel launches so far; a run resets it to see which kernels it went through.
+launches = 0
+
+# the cap bits the kernel returns per board (csrc/machine.cuh kCap*): a
+# micro-step's push was dropped; the step budget ran out with frames live
+CAP_STACK, CAP_STEPS = 8, 16
+MAX_CELLS = 65535  # 16-bit cell indices of the refill
 
 
 def _at(x, coord):
@@ -117,3 +137,95 @@ def combination_match(cfg: EnvConfig, colour, kind, coord1, coord2):
     # +2 in every case (`board.py:609`); cookie+normal takes one back (`board.py:641`)
     activated = 2 + st.count - case_cn.to(torch.int32)
     return st.colour, st.kind, activated, st.ovf
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(R: int, C: int, device: int):
+    """(launch function, scratch bytes of one board as a function of (K,
+    stack_max), the block's shared-memory limit) for R x C boards on card
+    ``device``: once per shape and card."""
+    lib = cuda_build.load("combination", cuda_build.shape_of(R, C))
+    fn = lib.tmt_combination_trip
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem = lib.tmt_combination_trip_smem
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_longlong
+    lib.tmt_smem_optin.argtypes = []
+    lib.tmt_smem_optin.restype = ctypes.c_int
+    return fn, smem, lib.tmt_smem_optin()
+
+
+def raise_caps(cfg: EnvConfig, caps: torch.Tensor, live: torch.Tensor) -> None:
+    """Raise the plain branch's ``debug_checks`` message for the first cap
+    that fired, in the order the plain machine meets them (a dropped push
+    at any micro-step, then the step budget after the run); caps, live:
+    int32[B] on the host."""
+    if bool((caps & CAP_STACK).any()):
+        raise RuntimeError(
+            f"stack_max overflow: activation frame dropped at depth {cfg.stack_max}"
+        )
+    if bool((caps & CAP_STEPS).any()):
+        n = int(live[(caps & CAP_STEPS) > 0][0])
+        raise RuntimeError(f"activation_steps_max exceeded: chain truncated with {n} frames live")
+
+
+def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
+    """The combination branch of the boards where ``comb`` (`board.py:
+    357-366`): colour, kind int32[B, R, C], key int64[B, 2] threefry words,
+    coord1, coord2 int[B, 2], comb bool[B].  Returns (colour, kind, key,
+    elim, activated, ovf), equal to ``engine.combination_branch``'s; the
+    other boards come back unchanged with zero counts.  The CUDA kernel on
+    a CUDA device, the plain branch on CPU tensors."""
+    if colour.device.type == "cpu":
+        from .. import engine
+
+        return engine.combination_branch(cfg, colour, kind, key, coord1, coord2, comb)
+    if colour.device.type != "cuda":
+        raise ValueError(f"combination_trip: unsupported device {colour.device}")
+    B, R, C = colour.shape
+    if (R, C) != (cfg.num_rows, cfg.num_cols):
+        raise ValueError(f"board shape {(R, C)} does not match the config")
+    if R * C > MAX_CELLS:
+        raise ValueError(
+            f"combination_trip: a {R}x{C} board ({R * C} cells) is beyond the kernel's "
+            f"{MAX_CELLS} cells"
+        )
+    dev = colour.device
+    coord1 = coord1.to(torch.int32).contiguous()
+    coord2 = coord2.to(torch.int32).contiguous()
+    comb = comb.to(torch.bool).contiguous()
+    key = key.contiguous()
+    for name, t, dtype, shape in (
+        ("colour", colour, torch.int32, (B, R, C)), ("kind", kind, torch.int32, (B, R, C)),
+        ("key", key, torch.int64, (B, 2)), ("coord1", coord1, torch.int32, (B, 2)),
+        ("coord2", coord2, torch.int32, (B, 2)), ("comb", comb, torch.bool, (B,)),
+    ):
+        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)} tensor on {dev}")
+    out = [torch.empty_like(colour), torch.empty_like(kind), torch.empty_like(key)]
+    out += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2)]
+    ovf = torch.empty(B, dtype=torch.bool, device=dev)
+    caps = torch.empty(B, dtype=torch.int32, device=dev)
+    live = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return (*out, ovf)
+    K, SM = cfg.num_colours, cfg.stack_max
+    with torch.cuda.device(dev):
+        fn, smem, optin = _kernel(R, C, dev.index)
+        bytes_ = smem(R, C, K, SM)
+        scratch = None if bytes_ <= optin else torch.empty(B * bytes_, dtype=torch.uint8, device=dev)
+        err = fn(
+            colour.data_ptr(), kind.data_ptr(), key.data_ptr(), coord1.data_ptr(),
+            coord2.data_ptr(), comb.data_ptr(), *(t.data_ptr() for t in out), ovf.data_ptr(),
+            caps.data_ptr(), live.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, R, C, K, SM, cfg.activation_steps_max, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"combination_trip kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    if cfg.debug_checks:
+        raise_caps(cfg, caps.cpu(), live.cpu())
+    return (*out, ovf)

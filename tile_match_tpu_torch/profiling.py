@@ -24,10 +24,10 @@ per step and those of each of the port's kernels (their wrappers' counts),
 device time of the port's CUDA kernels against all other device work, and
 the ten kernels with the most device time.  Then ``--steps`` more
 steps without the profiler, with a host clock (after a device
-synchronisation) around the step's parts — the combination branch, the
-kernel launches, the full machinery trips and their detection,
-classification and resolution, the post-move mask and the playability
-loop — printed in ms per step (nested parts count in their callers too).
+synchronisation) around the step's parts — the combination branch (K5's
+wrapper ``combination_trip``), the specials cascade and its kernel
+launches (K2, K4), the post-move mask (K3) and the playability loop —
+printed in ms per step (nested parts count in their callers too).
 With ``--dqn`` the step is ``models.dqn.make_dqn``'s train step (hidden
 512, default epsilon schedule) on a batch of ``--batch`` boards, and the
 launches a step are also split between the env step, the epsilon-greedy
@@ -44,7 +44,8 @@ import json
 import sys
 import time
 
-PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel")
+PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel", "specials_trip_kernel",
+                "combination_trip_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -65,10 +66,10 @@ def _busy_us(intervals) -> float:
 def kernel_modules() -> dict:
     """The modules of the port's kernel wrappers by kernel name; each counts
     its kernel's launches in ``launches``."""
-    from .ops import cascade, cascade_sp, mask_sp, trip_sp
+    from .ops import cascade, cascade_sp, combination, mask_sp, trip_sp
 
     return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp,
-            "specials_trip": trip_sp}
+            "specials_trip": trip_sp, "combination_trip": combination}
 
 
 @contextlib.contextmanager
@@ -365,8 +366,7 @@ def profile_step(argv) -> int:
 
         setattr(module, name, wrapper)
 
-    for module, name in ((engine, "combination_branch"), (engine, "combination_match"),
-                         (engine, "make_playable"),
+    for module, name in ((engine, "combination_trip"), (engine, "make_playable"),
                          (engine, "fused_specials_cascade"), (engine, "cascade_sp_chunk"),
                          (engine, "specials_trip"), (engine, "settled_mask_sp")):
         timed(module, name)

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's three CUDA kernels on one card, for the port
-package of a given checkout.
+"""Time the PyTorch port's CUDA kernels on one card, for the port package
+of a given checkout.
 
-    python tools/torch_kernel_times.py [--root DIR] [--reps 20]
+    python tools/torch_kernel_times.py [--root DIR] [--reps 20] [--trips-only]
 
 ``--root`` is the root of a checkout whose ``tile_match_tpu_torch`` is
 imported and built (default: this one), so that two versions compare in
 one call on one card: run it for each in turns (parent, change, change,
 parent).  Prints one JSON line: the card's name and power limit, the root,
 and the mean ms per launch of
+
+- K4 on the inputs of its first launch in a config-3 step at B=16384 (the
+  boards K2 froze in the first cascade round, ``chip_smoke.
+  main_path_trip_inputs``), and K5 (where the package has it) on the inputs
+  of its launch in step 20 of config 3 at B=16384 (``chip_smoke.
+  main_path_comb_inputs``), each queued and as called (``*_called_ms``),
+  with the boards each launch works on; with ``--trips-only`` nothing else;
 
 - ``chip_smoke.py`` phase 3's inputs at 10x10x4 B=16384: K1 on uniform
   random boards (also with no trip allowed, which leaves its load, mask
@@ -58,6 +65,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--trips-only", action="store_true", help="time K4 and K5 alone")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, HERE)
@@ -72,7 +80,7 @@ def main() -> int:
     from tile_match_tpu_torch import cuda_build, engine
     from tile_match_tpu_torch import random as trandom
     from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
-    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp
+    from tile_match_tpu_torch.ops import cascade, cascade_sp, mask_sp, trip_sp
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -119,6 +127,24 @@ def main() -> int:
         return queued_ms(fn), chip_smoke._time_ms(fn, args.reps)
 
     rec = {"smi": smi, "root": root, "package": os.path.dirname(cascade.__file__)}
+    # K4 and K5 on their main-path inputs
+    cfg_t, trip_in = chip_smoke.main_path_trip_inputs(dev)
+    rec["K4_boards"] = int(trip_in[0].shape[0])
+    _, rec["K4_ms"] = timed(lambda: trip_sp.specials_trip(cfg_t, *trip_in))
+    rec["K4_called_ms"] = chip_smoke._time_ms(lambda: trip_sp.specials_trip(cfg_t, *trip_in),
+                                              args.reps)
+    if hasattr(engine, "combination_trip"):  # absent from older checkouts
+        from tile_match_tpu_torch.ops import combination
+
+        cfg_c, comb_in = chip_smoke.main_path_comb_inputs(dev)
+        rec["K5_boards"] = int(comb_in[5].sum())
+        _, rec["K5_ms"] = timed(lambda: combination.combination_trip(cfg_c, *comb_in))
+        rec["K5_called_ms"] = chip_smoke._time_ms(
+            lambda: combination.combination_trip(cfg_c, *comb_in), args.reps)
+    if args.trips_only:
+        rec["outputs_sha1"] = digest.hexdigest()
+        print(json.dumps(rec))
+        return 0
     B = chip_smoke.MAIN_BATCH
     cfg1 = chip_smoke._config(10, 10, 4)
     colour, sub = chip_smoke._random_inputs(10, 10, 4, B, seed=7, device=dev)

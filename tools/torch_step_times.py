@@ -12,8 +12,10 @@ without the bomb) at ``chip_smoke.MAIN_BATCH`` boards from reset,
 policy, a host clock around each step ending in a device synchronisation.
 Prints one JSON line: the card's name and power limit, the root, the ms of
 every step, their mean and median, the mean of the steps without an
-auto-reset, the auto-reset steps alone, and the launches a step of each
-kernel wrapper.  Run it for two checkouts in turns (parent, change,
+auto-reset, the auto-reset steps alone, the launches a step of each
+kernel wrapper, the combination boards a step, and the host
+synchronisations of every step (torch's sync debug mode, in a second run
+of the same steps, which its warnings slow).  Run it for two checkouts in turns (parent, change,
 change, parent) to compare them on one card.  Imports no JAX.
 """
 
@@ -51,6 +53,8 @@ def main() -> int:
     cfg = chip_smoke._config(10, 10, 4, 30, specials)
     with contextlib.redirect_stdout(sys.stderr):  # drive's report; stdout holds the JSON
         run = chip_smoke.drive(cfg, torch.device("cuda", 0), smi, tag, required=())
+        counted = chip_smoke.drive(cfg, torch.device("cuda", 0), smi, tag, required=(),
+                                   host_syncs=True)
     step_ms, resets = run["step_ms"], run["reset_steps"]
     steady = [ms for t, ms in enumerate(step_ms) if t not in resets]
     print(json.dumps({
@@ -61,6 +65,9 @@ def main() -> int:
         "steady_mean_ms": sum(steady) / max(len(steady), 1),
         "reset_step_ms": [step_ms[t] for t in resets],
         "launches_per_step": {n: c / len(step_ms) for n, c in run["launches"].items()},
+        "combs_per_step": run["combs_per_step"],
+        "host_syncs": counted["syncs"],
+        "host_syncs_per_step": sum(counted["syncs"]) / len(counted["syncs"]),
     }))
     return 0
 

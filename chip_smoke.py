@@ -36,10 +36,14 @@ Phases, one line each or more; any failure exits non-zero:
      combination_trip, the combination branch, on boards whose swap cells
      hold all 25 ordered pairs of kinds (and boards whose flag is clear,
      which must come back unchanged) at 10x10x4 B=16384, 6x6x3 B=1000,
-     20x20x6 B=1024, 36x36x6 B=256, 80x80x6 B=16 (its stack in device
-     memory) and at 10x10x3 B=4096 with max_stack=2 and with
-     max_activation_steps=8 (the caps fire), and times it on the inputs of
-     its launch in step 20 of config 3 at B=16384;
+     20x20x6 B=1024, 36x36x6 B=256, 80x80x6 B=16, 100x100x6 B=8 (its
+     scratch in device memory) and at 10x10x3 B=4096 with max_stack=2 and
+     with max_activation_steps=8 (the caps fire), with every flag clear
+     (the boards byte for byte as they were: it updates the flagged ones
+     in place), with one flag set and at B=1, and times it on the inputs
+     of its launch in step 20 of config 3 at B=16384: as they are, with
+     every flag clear and with only the longest chain's board flagged,
+     with the chains' micro-steps by the plain machine (``k5_readings``);
   4-19 run with the plain settled mask, the plain trip and the plain
      combination branch refused on CUDA tensors (``plain_mask_refused``,
      ``plain_trip_refused``, ``plain_combination_refused``): K3 computes
@@ -200,11 +204,12 @@ K4_SHAPES = ((10, 10, 4, 16384, {}), (6, 6, 3, 1000, {}),
              (20, 20, 6, 1024, {}), (36, 36, 6, 256, {}), (80, 80, 6, 16, {}),
              (10, 10, 3, 4096, {"max_lines": 2}), (10, 10, 3, 4096, {"max_stack": 2}))
 # K5 on boards whose swap cells hold every ordered pair of kinds: (R, C, K,
-# B, config overrides); 80x80's stack lies in device memory, and the tight
-# caps fire on some boards
+# B, config overrides); 80x80's scratch takes a block's shared memory for
+# one board, 100x100's lies in device memory, and the tight caps fire on
+# some boards
 K5_SHAPES = ((10, 10, 4, 16384, {}), (6, 6, 3, 1000, {}), (20, 20, 6, 1024, {}),
-             (36, 36, 6, 256, {}), (80, 80, 6, 16, {}), (10, 10, 3, 4096, {"max_stack": 2}),
-             (10, 10, 3, 4096, {"max_activation_steps": 8}))
+             (36, 36, 6, 256, {}), (80, 80, 6, 16, {}), (100, 100, 6, 8, {}),
+             (10, 10, 3, 4096, {"max_stack": 2}), (10, 10, 3, 4096, {"max_activation_steps": 8}))
 # the config-3 step whose K5 inputs phase 3 times (late in the episode,
 # where the boards hold the most specials; the auto-reset is at step 29)
 K5_MAIN_STEP = 20
@@ -262,6 +267,11 @@ OPS_PER_REFILL = 2 * 20 * 3
 OPS_PER_TRIP_KEYS = 3 * 20 * 3
 # the combination branch's keys: split(key), then split(kd) for the refill
 OPS_PER_COMB_KEYS = 4 * 20 * 3
+# K5's latency floor: the longest chain's micro-steps, each at least one
+# dependent warp vote and one shuffle (~25 cycles of latency each on
+# Hopper: an estimate, not a measurement), at the H100 SXM's boost clock
+FLOOR_CYCLES_PER_MICRO_STEP = 50
+CLOCK_HZ = 1.98e9
 
 
 def check(cond, msg: str) -> None:
@@ -810,10 +820,97 @@ def main_path_comb_inputs(device):
     return cfg, seen[-1]
 
 
+def chain_lengths(cfg, inputs):
+    """The activation machine's micro-steps on each flagged board of K5's
+    inputs, counted by the plain machine (``ops.activate.machine_step``
+    until every stack drains, as ``run_machine`` runs it, summing the
+    boards whose stack is not empty): (the flagged boards' indices, their
+    micro-steps)."""
+    import torch
+
+    from tile_match_tpu_torch import engine
+    from tile_match_tpu_torch.ops import activate, combination
+
+    counts, real = [], combination.run_machine
+
+    def counting(cfg_, st):
+        n = torch.zeros_like(st.sp)
+        for _ in range(cfg_.activation_steps_max):
+            go = st.sp > 0
+            if not bool(go.any()):
+                break
+            n += go.to(n.dtype)
+            st = activate.machine_step(cfg_, st, go)
+        counts.append(n)
+        return dataclasses.replace(st, ovf=st.ovf | (st.sp > 0))
+
+    combination.run_machine = counting
+    try:
+        engine.combination_branch(cfg, *inputs)
+    finally:
+        combination.run_machine = real
+    flagged = inputs[5].nonzero()[:, 0]
+    return flagged, counts[0] if counts else torch.zeros_like(flagged)
+
+
+def k5_ms(cfg, inputs, reps: int):
+    """K5 on ``inputs``, each launch on a fresh copy of them (the kernel
+    updates its boards in place; the copies are made before the clock
+    starts): (mean ms as called, mean ms queued)."""
+    from tile_match_tpu_torch.ops import combination
+
+    def on_copies():
+        copies = [tuple(t.clone() for t in inputs) for _ in range(reps + 1)]
+        return lambda: combination.combination_trip(cfg, *copies.pop())
+
+    return _time_ms(on_copies(), reps), _queued_ms(on_copies(), reps)
+
+
+def k5_readings(cfg, inputs, reps: int) -> dict:
+    """K5's readings on one launch's inputs: the inputs as they are
+    (``ms``, ``queued_ms``), with every flag clear (the launch without its
+    boards: ``clear_*``), with only the board of the longest chain flagged
+    (``longest_*``), and the micro-steps of the flagged boards' chains by
+    the plain machine (``steps_max``, ``steps_p99``, ``steps_mean``)."""
+    import torch
+
+    flagged, steps = chain_lengths(cfg, inputs)
+    comb = inputs[5]
+    rec = {"boards": int(flagged.numel())}
+    rec["ms"], rec["queued_ms"] = k5_ms(cfg, inputs, reps)
+    clear = (*inputs[:5], torch.zeros_like(comb))
+    rec["clear_ms"], rec["clear_queued_ms"] = k5_ms(cfg, clear, reps)
+    if flagged.numel():
+        longest = flagged[steps.argmax()]
+        alone = (*inputs[:5], torch.zeros_like(comb).index_fill_(0, longest[None], True))
+        rec["longest_ms"], rec["longest_queued_ms"] = k5_ms(cfg, alone, reps)
+        s = steps.double()
+        rec.update(longest_board=int(longest), steps_max=int(steps.max()),
+                   steps_p99=float(s.quantile(0.99)), steps_mean=float(s.mean()))
+    return rec
+
+
+def k5_bound(cfg, inputs, out):
+    """K5's bound on one launch: (ms, "bytes" or "operations"), with the
+    bytes that the function must move (each read once, each written once):
+    every board's flag and key in, key and counts (elim, act, ovf, and the
+    cap bits and frames live) out; a flagged board's cells and swap
+    coordinates in and its cells out (an unflagged board's cells are
+    neither read nor written); and the operations of the refill's hashes
+    and the keys' splits."""
+    colour, kind, key, coord1, coord2, comb = inputs
+    n = int(comb.sum())
+    every = _nbytes(comb[:1], key[:1], out[2][:1], out[3][:1], out[4][:1], out[5][:1]) + 8
+    flagged = 2 * _nbytes(colour[:1], kind[:1]) + _nbytes(coord1[:1], coord2[:1])
+    return bound(comb.numel() * every + n * flagged,
+                 OPS_PER_REFILL * int(out[3].sum()) + OPS_PER_COMB_KEYS * n)
+
+
 def check_combination(device, smi) -> dict:
     """Phase 3, K5: the combination branch against the plain branch on the
-    card at K5_SHAPES, then timed on the inputs of a main-path launch.
-    Returns its kernels-line record."""
+    card at K5_SHAPES, with every flag clear, with one flag set and on one
+    board; then timed on the inputs of a main-path launch with the
+    readings of ``k5_readings``.  Returns its kernels-line record."""
     import torch
 
     from tile_match_tpu_torch import engine
@@ -821,40 +918,68 @@ def check_combination(device, smi) -> dict:
 
     names = ("colour", "kind", "key", "elim", "act", "ovf")
     err = 0
+
+    def held(cfg, inputs, tag):
+        """K5 (on a copy: it updates the boards in place) against the plain
+        branch; the unflagged boards untouched.  Returns K5's outputs."""
+        nonlocal err
+        before = combination.launches
+        got = combination.combination_trip(cfg, *(t.clone() for t in inputs))
+        want = engine.combination_branch(cfg, *inputs)
+        torch.cuda.synchronize()
+        check(combination.launches == before + 1, f"{tag}: the wrapper did not launch the kernel")
+        err = max(err, _assert_equal(got, want, names, tag))
+        comb = inputs[5]
+        check(bool((got[3][~comb] == 0).all()) and torch.equal(got[0][~comb], inputs[0][~comb])
+              and torch.equal(got[1][~comb], inputs[1][~comb]),
+              f"{tag}: a board whose flag is clear changed")
+        return got
+
     for R, C, K, B, caps in K5_SHAPES:
         cfg = dataclasses.replace(_config(R, C, K, 30, ALL_SPECIALS), **caps)
         inputs = combination_inputs(R, C, K, B, seed=R * 11 + B, device=device)
-        before = combination.launches
-        got = combination.combination_trip(cfg, *inputs)
-        want = engine.combination_branch(cfg, *inputs)
-        torch.cuda.synchronize()
-        check(combination.launches == before + 1, "K5: the wrapper did not launch the kernel")
         tag = f"K5 {R}x{C}x{K} B={B} {caps or ''}"
-        err = max(err, _assert_equal(got, want, names, tag))
-        comb = inputs[5]
-        check(bool((got[3][~comb] == 0).all()) and torch.equal(got[0][~comb], inputs[0][~comb]),
-              f"{tag}: a board whose flag is clear changed")
+        got = held(cfg, inputs, tag)
         if caps:
             check(bool(got[5].any()), f"{tag}: the cap fired on no board")
-        print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; {int(comb.sum())} flagged "
-              f"boards, activated {int(got[4].sum())}, eliminated {int(got[3].sum())}, ovf "
+        print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; {int(inputs[5].sum())} "
+              f"flagged boards, activated {int(got[4].sum())}, eliminated {int(got[3].sum())}, ovf "
               f"{int(got[5].sum())}")
+    # every flag clear: the caller's boards byte for byte as they were; one
+    # flag set; one board (the Gym adapter's threefry engine)
+    cfg = _config(10, 10, 4, 30, ALL_SPECIALS)
+    inputs = combination_inputs(10, 10, 4, MAIN_BATCH, seed=13, device=device)
+    mine = tuple(t.clone() for t in inputs[:2])
+    out = combination.combination_trip(cfg, *mine, *inputs[2:5], torch.zeros_like(inputs[5]))
+    torch.cuda.synchronize()
+    check(out[0] is mine[0] and out[1] is mine[1], "K5: the board outputs are not the caller's tensors")
+    check(torch.equal(mine[0], inputs[0]) and torch.equal(mine[1], inputs[1])
+          and torch.equal(out[2], inputs[2]) and not any(bool(t.any()) for t in out[3:]),
+          "K5 with every flag clear: a board, key or count changed")
+    first = int(inputs[5].nonzero()[0, 0])
+    one = torch.zeros_like(inputs[5])
+    one[first] = True
+    held(cfg, (*inputs[:5], one), "K5 10x10x4 one flag set")
+    held(cfg, tuple(t[first:first + 1].contiguous() for t in inputs), "K5 10x10x4 B=1")
+    print(f"phase 3: K5 10x10x4 B={MAIN_BATCH} with every flag clear left the boards byte for byte "
+          f"as they were; kernel == plain with one flag set and at B=1")
+
     cfg, inputs = main_path_comb_inputs(device)
-    out = combination.combination_trip(cfg, *inputs)
-    err = max(err, _assert_equal(out, engine.combination_branch(cfg, *inputs), names,
-                                 "K5 main-path launch"))
-    ms, queued = _kernel_ms(lambda: combination.combination_trip(cfg, *inputs), reps=20)
+    out = held(cfg, inputs, "K5 main-path launch")
+    r = k5_readings(cfg, inputs, reps=20)
     plain_ms = _time_ms(lambda: engine.combination_branch(cfg, *inputs), reps=2)
-    comb = inputs[5]
-    n = int(comb.sum())
-    # the flagged boards' bytes in (board, key, coordinates, flag) and out
-    # (board, key, counts); the refill's hashes and the keys' splits
-    per_board = _nbytes(*(t[:1] for t in inputs), *(t[:1] for t in out))
-    b_ms, b_by = bound(n * per_board, OPS_PER_REFILL * int(out[3].sum()) + OPS_PER_COMB_KEYS * n)
-    print(f"phase 3 ok: K5 10x10x4 config 3's step {K5_MAIN_STEP} at B={MAIN_BATCH}, {n} flagged "
-          f"boards (activated {int(out[4].sum())}, max {int(out[4].max())}): kernel {ms:.4f} ms "
-          f"(queued {queued:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({smi})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = k5_bound(cfg, inputs, out)
+    floor_ms = r.get("steps_max", 0) * FLOOR_CYCLES_PER_MICRO_STEP / CLOCK_HZ * 1e3
+    print(f"phase 3 ok: K5 10x10x4 config 3's step {K5_MAIN_STEP} at B={MAIN_BATCH}, {r['boards']} "
+          f"flagged boards (activated {int(out[4].sum())}, max {int(out[4].max())}): kernel "
+          f"{r['ms']:.4f} ms (queued {r['queued_ms']:.4f} ms); every flag clear {r['clear_ms']:.4f} "
+          f"(queued {r['clear_queued_ms']:.4f}); the longest chain alone {r.get('longest_ms', 0):.4f} "
+          f"(queued {r.get('longest_queued_ms', 0):.4f}); micro-steps a flagged board max "
+          f"{r.get('steps_max')}, p99 {r.get('steps_p99')}, mean {r.get('steps_mean', 0):.2f}; plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), latency floor {floor_ms:.6f} ms "
+          f"({FLOOR_CYCLES_PER_MICRO_STEP} cycles a micro-step of the longest chain at "
+          f"{CLOCK_HZ / 1e9:.2f} GHz) ({smi})")
+    return dict(max_abs_err=err, ms=r["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 @contextlib.contextmanager

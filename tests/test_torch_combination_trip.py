@@ -15,11 +15,15 @@ zero counts.  ``csrc/combination.cu`` compiled as plain C++
 equals the plain branch on the same boards, in fixed-shape libraries and at
 36x36 (the library of any shape), with caps tight enough that each fires
 and raises the plain branch's ``debug_checks`` message, and on the
-recorded combination fixtures; its ``tmt_run_machine_host`` (the machine
-of ``csrc/machine.cuh`` alone) equals ``ops.activate.run_machine`` for
-every frame op, on sprinkled boards and on the recorded activation
-fixtures.  ``test_torch_kernels_cuda.py`` holds the kernel itself on the
-card.
+recorded combination fixtures and painted boards whose chains are longer
+than the main path's longest; its ``tmt_run_machine_host`` (the machine of
+``csrc/machine.cuh``, K4's, alone) and ``tmt_run_machine_bits_host`` (K5's
+bit-plane machine of ``csrc/machine_bits.cuh`` alone) equal
+``ops.activate.run_machine`` for every frame op, on sprinkled boards under
+tight caps and on the recorded activation fixtures.  On the CPU the
+wrapper writes nothing in place, and ``engine_move`` hands it temporaries
+of its own (the kernel updates them in place on the card).
+``test_torch_kernels_cuda.py`` holds the kernel itself on the card.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_combination_trip.py -q
 """
@@ -359,3 +363,168 @@ def test_machine_activation_fixture(host_lib, fx):
     want_col, want_kin = (np.asarray(ch, np.int32) for ch in fx["after"])
     assert np.array_equal(got[0][0].numpy(), want_col) and np.array_equal(got[1][0].numpy(), want_kin)
     assert int(got[2][0]) == fx["num_specials_activated"], fx["name"]
+
+
+# ---- K5's bit-plane machine alone, built for the host ------------------------
+
+
+def _bits_fn(lib):
+    fn = lib.tmt_run_machine_bits_host
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("kw", [{}, dict(max_stack=2), dict(max_activation_steps=3)],
+                         ids=["default", "stack2", "steps3"])
+@pytest.mark.parametrize("op", OPS)
+def test_bits_machine_matches_plain(host_lib, op, kw):
+    """``tmt_run_machine_bits_host`` (csrc/machine_bits.cuh, K5's machine)
+    against ``ops.activate.run_machine``, each frame op seeded on boards
+    with many specials at 6x6, 8x8 and 10x10 (130 boards, 4 words of a
+    board's planes at 10x10): the same boards, counts, ``ovf`` and frames
+    live; where a cap fires, the plain machine's first ``debug_checks``
+    message."""
+    fn = _bits_fn(host_lib)
+    for R, C, K in ((10, 10, 4), (8, 8, 3), (6, 6, 3)):
+        _, tc = _cfgs(R, C, K, ALL, **kw)
+        colour, kind = sprinkled(R, C, K, B, seed=R * 3 + len(op), n_max=R * C // 3)
+        seeds = _seeds(tc, kind, OPS[op], np.random.default_rng(R * 5 + len(op)))
+        got, caps = run_machine_host(fn, tc, colour, kind, seeds)
+        want = plain_machine(tc, colour, kind, seeds)
+        _assert_equal(got, want, f"{op} {R}x{C} {kw}", ["colour", "kind", "count", "ovf", "live"])
+        assert int((got[0] == 0).sum()) > int((colour == 0).sum())  # the machine deleted cells
+        if kw:
+            assert int(caps.sum()) > 0
+            assert _k5_error(tc, caps, got[4]) == _plain_machine_error(tc, colour, kind, seeds)
+
+
+def test_bits_machine_fixed_shape_and_wide_boards(tmp_path_factory, host_lib):
+    """The bit-plane machine in a library of one board shape (10x10, its
+    geometry fixed at compile time) and at 36x36 and 40x60 in the library
+    of any shape (planes of 41 and 75 words: two and four words a lane on
+    the card), every frame op in turn."""
+    fixed = _bits_fn(_host_build(tmp_path_factory, "combination", (10, 10)))
+    for fn, (R, C, K, n) in ((fixed, (10, 10, 4, B)), (_bits_fn(host_lib), (36, 36, 6, 4)),
+                             (_bits_fn(host_lib), (40, 60, 5, 2))):
+        _, tc = _cfgs(R, C, K, ALL)
+        colour, kind = sprinkled(R, C, K, n, seed=R + C, n_max=R * C // 8)
+        for op in OPS:
+            seeds = _seeds(tc, kind, OPS[op], np.random.default_rng(R * C + len(op)))
+            got, _ = run_machine_host(fn, tc, colour, kind, seeds)
+            _assert_equal(got, plain_machine(tc, colour, kind, seeds), f"{op} {R}x{C}",
+                          ["colour", "kind", "count", "ovf", "live"])
+
+
+@pytest.mark.parametrize("fx", FIX["activation"], ids=[f["name"] for f in FIX["activation"]])
+def test_bits_machine_activation_fixture(host_lib, fx):
+    """The recorded activations of the original game through the bit-plane
+    machine, from the special at the fixture's cell, counted."""
+    cfg = EnvConfig.create(fx["rows"], fx["cols"], fx["colours"], 10)
+    colour, kind = (np.asarray(ch, np.int32)[None] for ch in fx["before"])
+    r, c = fx["coord"]
+    seeds = np.array([[kind[0, r, c], r, c, -1, 0, 1]], np.int32)
+    got, _ = run_machine_host(_bits_fn(host_lib), cfg, colour, kind, seeds)
+    want_col, want_kin = (np.asarray(ch, np.int32) for ch in fx["after"])
+    assert np.array_equal(got[0][0].numpy(), want_col) and np.array_equal(got[1][0].numpy(), want_kin)
+    assert int(got[2][0]) == fx["num_specials_activated"], fx["name"]
+
+
+def test_engine_move_hands_k5_its_temporaries(monkeypatch):
+    """The first 12 steps of the recorded config-3 rollout (tests/data/
+    torch_port_fixture_cfg3.npz) replay bit for bit on the CPU with the
+    combination branch watched: ``engine_move`` hands ``combination_trip``
+    boards of its own (the swap's temporaries, never the caller's state
+    tensors, which the kernel on the card updates in place), and on the CPU
+    the wrapper writes nothing into them."""
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
+    from tile_match_tpu_torch.interop import state_to_numpy
+
+    calls, moves = [], []
+    trip, move = engine.combination_trip, engine.engine_move
+
+    def watched_move(cfg, colour, kind, *rest):
+        moves.append((colour.data_ptr(), kind.data_ptr()))
+        return move(cfg, colour, kind, *rest)
+
+    def watched_trip(cfg, colour, kind, key, coord1, coord2, comb):
+        before = colour.clone(), kind.clone()
+        out = trip(cfg, colour, kind, key, coord1, coord2, comb)
+        calls.append(((colour.data_ptr(), kind.data_ptr()), int(comb.sum()),
+                      torch.equal(colour, before[0]) and torch.equal(kind, before[1])))
+        return out
+
+    monkeypatch.setattr(engine, "engine_move", watched_move)
+    monkeypatch.setattr(engine, "combination_trip", watched_trip)
+    d = np.load(os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz"))
+    R, C, K, moves_max = (int(v) for v in d["config"])
+    cfg = EnvConfig(R, C, K, moves_max, **dict(zip(
+        ("cookie", "vertical_laser", "horizontal_laser", "bomb"), (bool(f) for f in d["specials"]))))
+    env = BatchedTileMatchEnv(cfg, d["colour"].shape[1], device="cpu")
+    states, _ = env.reset(trandom.PRNGKey(int(d["seed"]), "cpu"))
+    for t in range(12):
+        states, _ = env.step(states, torch.as_tensor(d["actions"][t].astype(np.int64)))
+        got = state_to_numpy(states)
+        for name in ("colour", "kind", "key"):
+            assert np.array_equal(got[name], d[name][t + 1]), f"step {t}: {name}"
+    assert len(calls) == len(moves) == 12
+    assert sum(flagged for _, flagged, _ in calls) > 0
+    for (ptrs, _, untouched), caller in zip(calls, moves):
+        assert untouched and ptrs[0] not in caller and ptrs[1] not in caller
+
+
+# the most micro-steps of a flagged board's chain on config 3's step-20 K5
+# inputs at B=16384 (chip_smoke.k5_readings, PERF.md §6)
+LONGEST_MAIN_PATH_CHAIN = 77
+
+
+def _painted_long_chain(partner):
+    """A 10x10x4 board whose swap of a cookie at (0, 0) with a special at
+    (0, 1) turns every other cell's normal (colour 1, half the board) into
+    that special: each converted special's frame scans its region in turn."""
+    r, c = np.indices((10, 10))
+    colour = ((r + 2 * c) % 4 + 1).astype(np.int32)
+    colour[(r + c) % 2 == 0] = 1
+    kind = np.ones_like(colour)
+    kind[0, 0], colour[0, 0] = -1, 0
+    kind[0, 1], colour[0, 1] = partner, 1
+    return colour, kind
+
+
+def test_longest_chain_painted_board(host_lib):
+    """Painted boards whose chains are longer than the longest of the main
+    path's step-20 launch (one for each partner special): K5's host build
+    equals the plain branch and JAX's combination round on them."""
+    from chip_smoke import chain_lengths
+
+    jc, tc = _cfgs(10, 10, 4, ALL)
+    boards = [_painted_long_chain(k) for k in (2, 3, 4)]
+    inputs = (np.stack([b[0] for b in boards]), np.stack([b[1] for b in boards]),
+              np.array([[1, 2], [3, 4], [5, 6]], np.uint32), np.zeros((3, 2), np.int32),
+              np.tile(np.array([[0, 1]], np.int32), (3, 1)), np.ones(3, bool))
+    _, steps = chain_lengths(tc, _torch(*inputs))
+    assert int(steps.min()) > LONGEST_MAIN_PATH_CHAIN
+    want = plain(tc, *inputs)
+    got, caps, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    _assert_equal(got, want, "painted long chains")
+    assert int(caps.sum()) == 0
+    for name, g, w in zip(NAMES, want, jax_branch(jc, *inputs)):
+        assert np.array_equal(g.numpy(), w), name
+
+
+def test_bits_machine_mask_scan_of_a_colour_without_a_plane(host_lib):
+    """A mask scan of colour 0 or K + 1, which have no colour plane in K5's
+    machine: the specials of that colour come from the board's cells, as
+    in the plain machine."""
+    _, tc = _cfgs(8, 8, 3, ALL)
+    colour, kind = sprinkled(8, 8, 3, B, seed=17, n_max=20)
+    rng = np.random.default_rng(17)
+    odd = (kind > 1) & (rng.random(kind.shape) < 0.5)
+    colour = np.where(odd, rng.choice(np.array([0, 4], np.int32), kind.shape), colour).astype(np.int32)
+    seeds = _seeds(tc, kind, tact.OP_MASKSCAN, rng)
+    seeds[:, 4] = np.where(np.arange(B) % 2 == 0, 0, 4)
+    got, _ = run_machine_host(_bits_fn(host_lib), tc, colour, kind, seeds)
+    want = plain_machine(tc, colour, kind, seeds)
+    _assert_equal(got, want, "mask scan", ["colour", "kind", "count", "ovf", "live"])
+    assert int(got[2].sum()) > 0  # the scans found specials and activated their children

@@ -420,9 +420,9 @@ def test_specials_cascade_runs_every_full_trip_on_k4(cuda_device):
 
 
 COMB_NAMES = ["colour", "kind", "key", "elim", "act", "ovf"]
-# K5: (R, C, K, B, config overrides)
-K5_CASES = [(10, 10, 4, 4096, {}), (36, 36, 6, 64, {}), (10, 10, 3, 1024, {"max_stack": 2}),
-            (10, 10, 3, 1024, {"max_activation_steps": 8})]
+# K5: (R, C, K, B, config overrides); 100x100's scratch lies in device memory
+K5_CASES = [(10, 10, 4, 4096, {}), (36, 36, 6, 64, {}), (100, 100, 6, 4, {}),
+            (10, 10, 3, 1024, {"max_stack": 2}), (10, 10, 3, 1024, {"max_activation_steps": 8})]
 
 
 @pytest.mark.cuda
@@ -434,7 +434,7 @@ def test_combination_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, 
     cfg = dataclasses.replace(_specials(R, C, K), **caps)
     inputs = smoke.combination_inputs(R, C, K, B, seed=R + B, device=cuda_device)
     before = tcomb.launches
-    got = tcomb.combination_trip(cfg, *inputs)
+    got = tcomb.combination_trip(cfg, *(t.clone() for t in inputs))  # updated in place
     torch.cuda.synchronize()
     assert tcomb.launches == before + 1
     want = engine.combination_branch(cfg, *inputs)
@@ -442,6 +442,32 @@ def test_combination_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, 
         assert g.dtype == w.dtype and torch.equal(g, w), name
     if caps:
         assert bool(got[5].any())  # the cap fired
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 130, 4096])
+def test_combination_trip_leaves_unflagged_boards_untouched(cuda_device, B):
+    """Every flag clear: the caller's boards byte for byte as they were, the
+    keys through, zero counts; one flag set: the plain branch's outputs,
+    the other boards as they were."""
+    smoke = _chip_smoke()
+    cfg = _specials(10, 10, 4)
+    colour, kind, keys, c1, c2, comb = smoke.combination_inputs(10, 10, 4, B, seed=B,
+                                                                device=cuda_device)
+    mine = colour.clone(), kind.clone()
+    got = tcomb.combination_trip(cfg, *mine, keys, c1, c2, torch.zeros_like(comb))
+    torch.cuda.synchronize()
+    assert got[0] is mine[0] and got[1] is mine[1]
+    assert torch.equal(mine[0], colour) and torch.equal(mine[1], kind) and torch.equal(got[2], keys)
+    assert not any(bool(t.any()) for t in got[3:])
+    one = torch.zeros_like(comb)
+    one[int(comb.nonzero()[0, 0]) if comb.any() else 0] = True
+    inputs = (colour, kind, keys, c1, c2, one)
+    got = tcomb.combination_trip(cfg, *(t.clone() for t in inputs))
+    want = engine.combination_branch(cfg, *inputs)
+    for g, w, name in zip(got, want, COMB_NAMES):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert torch.equal(got[0][~one], colour[~one]) and torch.equal(got[1][~one], kind[~one])
 
 
 @pytest.mark.cuda

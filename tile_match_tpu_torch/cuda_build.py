@@ -126,15 +126,18 @@ def load(name: str, shape=None) -> ctypes.CDLL:
 
 def ptxas_summary(log: str) -> list:
     """[kernel instance (its board shape "RxC", or "any" for the geometry
-    read at run time, and its warps a board if it takes them), registers,
-    spill stores, spill loads] for each kernel in nvcc's ``-Xptxas=-v``
-    output."""
+    read at run time, and its warps a board if it takes them, or K5's
+    words of a board's bit plane a lane and where its scratch lies),
+    registers, spill stores, spill loads] for each kernel in nvcc's
+    ``-Xptxas=-v`` output."""
     out, shape, spill = [], "?", [0, 0]
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"LinesILi(\d+)ELi(\d+)EEE(?:Li(\d+)E)?", ln)
+            m = re.search(r"LinesILi(\d+)ELi(\d+)EEE(?:Li(\d+)E)?(?:Lb([01])E)?", ln)
             shape = (f"{m[1]}x{m[2]}" if m[1] != "0" else "any") if m else "any"
-            if m and m[3]:
+            if m and m[4]:
+                shape += f" {m[3]} words a lane, scratch in {'shared' if m[4] == '1' else 'device'} memory"
+            elif m and m[3]:
                 shape += f" {m[3]} warps"
         elif "spill stores" in ln:
             spill = [int(v) for v in re.findall(r"(\d+) bytes spill", ln)]

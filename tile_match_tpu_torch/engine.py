@@ -293,6 +293,7 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
     if cfg.any_special:
         moved_kind = torch.where(e3, sw_kind, kind)
         comb = eff & is_combination(moved_kind, coord1, coord2)
+        # on the card K5 updates the flagged boards of these temporaries in place
         moved, moved_kind, key_c, comb_elim, comb_act, comb_ovf = combination_trip(
             cfg, moved, moved_kind, key, coord1, coord2, comb
         )

@@ -14,7 +14,10 @@ picks — as the CUDA kernel K5 (``csrc/combination.cu``; in the JAX package
 the XLA combination round of ``batched_step_fused_sp``,
 tile_match_tpu/envs/fused.py:422-524) on CUDA tensors, and as its plain
 version ``engine.combination_branch`` on CPU tensors.  The kernel takes
-the whole batch: no compaction of the flagged boards, no host sync.
+the whole batch and its flags, with no compaction of the flagged boards
+and no host sync, and updates the flagged boards in place: on the card the
+caller's board tensors are the board outputs, and an unflagged board is
+neither read nor written.
 """
 
 from __future__ import annotations
@@ -141,19 +144,29 @@ def combination_match(cfg: EnvConfig, colour, kind, coord1, coord2):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(R: int, C: int, device: int):
-    """(launch function, scratch bytes of one board as a function of (K,
-    stack_max), the block's shared-memory limit) for R x C boards on card
-    ``device``: once per shape and card."""
+    """(launch function, plan function) of the library for R x C boards on
+    card ``device``: once per shape and card."""
     lib = cuda_build.load("combination", cuda_build.shape_of(R, C))
     fn = lib.tmt_combination_trip
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    smem = lib.tmt_combination_trip_smem
-    smem.argtypes = [ctypes.c_int] * 4
-    smem.restype = ctypes.c_longlong
-    lib.tmt_smem_optin.argtypes = []
-    lib.tmt_smem_optin.restype = ctypes.c_int
-    return fn, smem, lib.tmt_smem_optin()
+    plan = lib.tmt_combination_trip_plan
+    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    return fn, plan
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, R: int, C: int, K: int, SM: int, device: int):
+    """K5's persistent grid for B boards on card ``device`` (the current
+    one): (warps a block, blocks, bytes of device-memory scratch a warp, 0
+    when it lies in shared memory).  Once per batch size, shape and card."""
+    out = (ctypes.c_longlong * 3)()
+    err = _kernel(R, C, device)[1](B, R, C, K, SM, out)
+    if err != 0:
+        raise RuntimeError(f"combination_trip: no launch plan for {B} {R}x{C} boards: "
+                           f"cudaError_t {err}")
+    return tuple(out)
 
 
 def raise_caps(cfg: EnvConfig, caps: torch.Tensor, live: torch.Tensor) -> None:
@@ -176,7 +189,12 @@ def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
     coord1, coord2 int[B, 2], comb bool[B].  Returns (colour, kind, key,
     elim, activated, ovf), equal to ``engine.combination_branch``'s; the
     other boards come back unchanged with zero counts.  The CUDA kernel on
-    a CUDA device, the plain branch on CPU tensors."""
+    a CUDA device, the plain branch on CPU tensors.
+
+    On the card the flagged boards are updated in place: the returned
+    colour and kind are the tensors passed in (contiguous), which the
+    kernel writes on the flagged boards only; key and the counts are fresh
+    tensors.  On the CPU nothing is written in place."""
     if colour.device.type == "cpu":
         from .. import engine
 
@@ -204,23 +222,23 @@ def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
         if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)} tensor on {dev}")
-    out = [torch.empty_like(colour), torch.empty_like(kind), torch.empty_like(key)]
-    out += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2)]
+    key_out = torch.empty_like(key)
+    elim, act, caps, live = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4))
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
-    caps = torch.empty(B, dtype=torch.int32, device=dev)
-    live = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
-        return (*out, ovf)
+        return colour, kind, key_out, elim, act, ovf
     K, SM = cfg.num_colours, cfg.stack_max
     with torch.cuda.device(dev):
-        fn, smem, optin = _kernel(R, C, dev.index)
-        bytes_ = smem(R, C, K, SM)
-        scratch = None if bytes_ <= optin else torch.empty(B * bytes_, dtype=torch.uint8, device=dev)
+        fn, _ = _kernel(R, C, dev.index)
+        warps, blocks, scratch_bytes = _plan(B, R, C, K, SM, dev.index)
+        scratch = (None if scratch_bytes == 0 else
+                   torch.empty(warps * blocks * scratch_bytes, dtype=torch.uint8, device=dev))
         err = fn(
             colour.data_ptr(), kind.data_ptr(), key.data_ptr(), coord1.data_ptr(),
-            coord2.data_ptr(), comb.data_ptr(), *(t.data_ptr() for t in out), ovf.data_ptr(),
-            caps.data_ptr(), live.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, R, C, K, SM, cfg.activation_steps_max, torch.cuda.current_stream(dev).cuda_stream,
+            coord2.data_ptr(), comb.data_ptr(), key_out.data_ptr(), elim.data_ptr(),
+            act.data_ptr(), ovf.data_ptr(), caps.data_ptr(), live.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, R, C, K, SM,
+            cfg.activation_steps_max, warps, blocks, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"combination_trip kernel launch failed: cudaError_t {err}")
@@ -228,4 +246,4 @@ def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
     launches += 1
     if cfg.debug_checks:
         raise_caps(cfg, caps.cpu(), live.cpu())
-    return (*out, ovf)
+    return colour, kind, key_out, elim, act, ovf

@@ -15,7 +15,13 @@ and the mean ms per launch of
   main_path_trip_inputs``), and K5 (where the package has it) on the inputs
   of its launch in step 20 of config 3 at B=16384 (``chip_smoke.
   main_path_comb_inputs``), each queued and as called (``*_called_ms``),
-  with the boards each launch works on; with ``--trips-only`` nothing else;
+  with the boards each launch works on; K5 also with every flag clear
+  (``K5_clear_*``) and with only the board of the longest chain flagged
+  (``K5_longest_*``), each launch on a fresh copy of its inputs (the
+  kernel updates its boards in place), and the micro-steps of the flagged
+  boards' chains by the plain machine (``K5_steps_max``, ``_p99``,
+  ``_mean``; ``chip_smoke.k5_readings``); with ``--trips-only`` nothing
+  else;
 
 - ``chip_smoke.py`` phase 3's inputs at 10x10x4 B=16384: K1 on uniform
   random boards (also with no trip allowed, which leaves its load, mask
@@ -137,10 +143,15 @@ def main() -> int:
         from tile_match_tpu_torch.ops import combination
 
         cfg_c, comb_in = chip_smoke.main_path_comb_inputs(dev)
-        rec["K5_boards"] = int(comb_in[5].sum())
-        _, rec["K5_ms"] = timed(lambda: combination.combination_trip(cfg_c, *comb_in))
-        rec["K5_called_ms"] = chip_smoke._time_ms(
-            lambda: combination.combination_trip(cfg_c, *comb_in), args.reps)
+        for t in combination.combination_trip(cfg_c, *(t.clone() for t in comb_in)):
+            digest.update(t.cpu().numpy().tobytes())
+        readings = chip_smoke.k5_readings(cfg_c, comb_in, args.reps)
+        for name, key in (("ms", "K5_called_ms"), ("queued_ms", "K5_ms"),
+                          ("clear_ms", "K5_clear_called_ms"), ("clear_queued_ms", "K5_clear_ms"),
+                          ("longest_ms", "K5_longest_called_ms"),
+                          ("longest_queued_ms", "K5_longest_ms")):
+            rec[key] = readings.pop(name, None)
+        rec.update({f"K5_{name}": v for name, v in readings.items()})
     if args.trips_only:
         rec["outputs_sha1"] = digest.hexdigest()
         print(json.dumps(rec))

@@ -1132,12 +1132,16 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
           f"{board_steps / (total_ms / 1e3):.1f} steps/s ({smi})")
     stats = engine.cascade_stats
     if stats["rounds"]:
+        from tile_match_tpu_torch.ops.cascade_sp import REASON_MULTI
+
         full_trips = stats["full_trips"]
+        reasons = engine.last_cascade["reasons"]
+        froze = [int(((reasons >> i) & 1).sum()) for i in range(REASON_MULTI.bit_length())]
         print(f"{tag} cascade: {stats['rounds'] / MAIN_STEPS:.2f} machinery rounds per step, "
               f"{full_trips / MAIN_STEPS:.1f} full-machinery trips per step, "
               f"{trips / MAIN_STEPS:.1f} trips per step, "
               f"{1 - full_trips / max(trips, 1):.4f} of trips taken in the kernel, "
-              f"K2 freezes per reason bit {stats['reasons']}")
+              f"boards frozen by K2 per reason bit in the last step {froze}")
     return {"launches": launches, "step_ms": step_ms, "reset_steps": reset_steps,
             "combs_per_step": combs / MAIN_STEPS, "syncs": syncs}
 

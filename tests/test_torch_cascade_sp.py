@@ -159,4 +159,5 @@ def test_fused_specials_cascade_matches_jax_loop(R, K, specials, painted, seed):
     stats = te.cascade_stats
     assert 0 < stats["full_trips"] < int(got[5].sum())
     assert stats["rounds"] <= tc.max_cascades
-    assert sum(stats["reasons"]) >= stats["full_trips"]
+    last = te.last_cascade
+    assert bool(((last["full_trips"] == 0) | (last["reasons"] != 0)).all())

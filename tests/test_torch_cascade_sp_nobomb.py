@@ -149,7 +149,8 @@ def test_fused_cascade_matches_machinery(name, seed):
         assert np.array_equal(g.numpy(), np.asarray(w)), n
     stats = te.cascade_stats
     assert 0 < stats["full_trips"] < int(got[5].sum()) // 2
-    assert stats["reasons"][1] > 0  # length >= 4 extensions froze boards
+    # length >= 4 extensions froze boards (bit 1 of some board's reasons)
+    assert bool(((te.last_cascade["reasons"] >> 1) & 1).any())
 
 
 def test_crossing_tails_survive():

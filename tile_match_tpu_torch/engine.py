@@ -37,13 +37,14 @@ from . import random as trandom
 from .config import EnvConfig
 from .ops.board_ops import apply_refill, apply_shuffle, draw_colour_grid, gravity, swap_cells
 from .ops.cascade import fused_cascade
-from .ops.cascade_sp import REASON_MULTI, cascade_sp_chunk
+from .ops.cascade_sp import cascade_sp_chunk
 from .ops.classify import process_colour_lines
 from .ops.combination import combination_match, combination_trip, is_combination
 from .ops.lines import get_colour_lines, has_any_line, run_member_mask
 from .ops.mask_sp import settled_mask_sp
 from .ops.resolve import resolve_colour_matches
 from .ops.trip_sp import specials_trip
+from .profiling import span
 from .state import EnvState, StepInfo, action_table
 
 
@@ -54,13 +55,24 @@ def _split_where(go: torch.Tensor, key: torch.Tensor):
     return torch.where(go[:, None], both[:, 0], key), both[:, 1]
 
 
-def _clear_lines(cfg, colour, key, has_lines, tot):
+def _going(go: torch.Tensor, count: list) -> int:
+    """The boards in ``go``, as the loops' one reduction and host read an
+    iteration; when any, adds the iteration and its boards to ``count``
+    [loops, live] (the ``playable`` span's counts)."""
+    n = int(go.sum())
+    if n:
+        count[0] += 1
+        count[1] += n
+    return n
+
+
+def _clear_lines(cfg, colour, key, has_lines, tot, count):
     """Redraw the cells of every >= 3 run until the board is line-free or
     the shared ``max_regen_iters`` budget ``tot`` runs out; one key split
-    per iteration."""
+    per iteration, counted into ``count`` (``_going``)."""
     while True:
         go = has_lines & (tot < cfg.max_regen_iters)
-        if not bool(go.any()):
+        if not _going(go, count):
             return colour, key, has_lines, tot
         key, k = _split_where(go, key)
         redraw = go[:, None, None] & run_member_mask(cfg, colour)
@@ -84,47 +96,54 @@ def make_playable(
 
     Returns (colour, kind, key, shuffled, mask, gave_up); a board that gave
     up — still unplayable or lined at the cap — gets an all-false mask.
+
+    Runs in span ``playable`` with ``boards``, ``loops`` (the iterations of
+    both loops) and ``live`` (the boards still going, summed over them).
     """
     B = colour.shape[0]
     cap = cfg.max_regen_iters
-    tot = torch.zeros(B, dtype=torch.int32, device=colour.device)
-    if skip is not None:
-        tot = torch.where(skip, cap, tot)
-    colour, key, has_lines, tot = _clear_lines(cfg, colour, key, init_has_lines, tot)
-    mask = settled_mask_sp(cfg, colour, kind) if mask0 is None else mask0
-    shuffled = torch.zeros(B, dtype=torch.bool, device=colour.device)
-    while True:
-        go = ((~mask.any(-1)) | has_lines) & (tot < cap)
-        if not bool(go.any()):
-            break
-        key, k = _split_where(go, key)
-        perm = trandom.permutation(k, cfg.flat_size)
-        s_colour, s_kind = apply_shuffle(colour, kind, perm)
-        g3 = go[:, None, None]
-        colour = torch.where(g3, s_colour, colour)
-        kind = torch.where(g3, s_kind, kind)
-        has_lines = torch.where(go, has_any_line(cfg, colour), has_lines)
-        colour, key, has_lines, tot = _clear_lines(
-            cfg, colour, key, has_lines, tot + go.to(torch.int32)
-        )
-        mask = torch.where(go[:, None], settled_mask_sp(cfg, colour, kind), mask)
-        shuffled = shuffled | go
-    gave_up = (~mask.any(-1)) | has_lines
-    mask = mask & ~gave_up[:, None]
+    count = [0, 0]
+    with span("playable", boards=B) as sp:
+        tot = torch.zeros(B, dtype=torch.int32, device=colour.device)
+        if skip is not None:
+            tot = torch.where(skip, cap, tot)
+        colour, key, has_lines, tot = _clear_lines(cfg, colour, key, init_has_lines, tot, count)
+        mask = settled_mask_sp(cfg, colour, kind) if mask0 is None else mask0
+        shuffled = torch.zeros(B, dtype=torch.bool, device=colour.device)
+        while True:
+            go = ((~mask.any(-1)) | has_lines) & (tot < cap)
+            if not _going(go, count):
+                break
+            key, k = _split_where(go, key)
+            perm = trandom.permutation(k, cfg.flat_size)
+            s_colour, s_kind = apply_shuffle(colour, kind, perm)
+            g3 = go[:, None, None]
+            colour = torch.where(g3, s_colour, colour)
+            kind = torch.where(g3, s_kind, kind)
+            has_lines = torch.where(go, has_any_line(cfg, colour), has_lines)
+            colour, key, has_lines, tot = _clear_lines(
+                cfg, colour, key, has_lines, tot + go.to(torch.int32), count
+            )
+            mask = torch.where(go[:, None], settled_mask_sp(cfg, colour, kind), mask)
+            shuffled = shuffled | go
+        gave_up = (~mask.any(-1)) | has_lines
+        mask = mask & ~gave_up[:, None]
+        sp.set(loops=count[0], live=count[1])
     return colour, kind, key, shuffled, mask, gave_up
 
 
 def generate_board(cfg: EnvConfig, keys):
     """Fresh all-normal boards, redrawn and shuffled until line-free with at
     least one effective move (`board.py:95-112`).  Returns (colour, kind,
-    key, mask, gave_up)."""
-    both = trandom.split(keys)
-    key, k = both[:, 0], both[:, 1]
-    colour = draw_colour_grid(k, cfg)
-    kind = torch.ones_like(colour)
-    colour, kind, key, _, mask, gave_up = make_playable(
-        cfg, colour, kind, key, has_any_line(cfg, colour)
-    )
+    key, mask, gave_up), in span ``regenerate`` with ``boards``."""
+    with span("regenerate", boards=keys.shape[0]):
+        both = trandom.split(keys)
+        key, k = both[:, 0], both[:, 1]
+        colour = draw_colour_grid(k, cfg)
+        kind = torch.ones_like(colour)
+        colour, kind, key, _, mask, gave_up = make_playable(
+            cfg, colour, kind, key, has_any_line(cfg, colour)
+        )
     return colour, kind, key, mask, gave_up
 
 
@@ -150,16 +169,14 @@ def specials_cascade_trip(cfg: EnvConfig, colour, kind, sub, it):
 
 
 # Telemetry of ``fused_specials_cascade``, summed over its calls since the
-# last ``reset_cascade_stats()``: loop rounds, trips run by the full
-# machinery, and for each freeze reason bit of K2 (``ops.cascade_sp.
-# REASON_*``, bit i at index i) the number of freezes it took part in.
-# Host integers, so that the counts hold across devices.
+# last ``reset_cascade_stats()``: loop rounds and trips run by the full
+# machinery.  Host integers, so that the counts hold across devices; each
+# board's freeze reasons are in ``last_cascade``.
 cascade_stats: dict = {}
-_N_REASONS = REASON_MULTI.bit_length()
 
 
 def reset_cascade_stats() -> None:
-    cascade_stats.update(rounds=0, full_trips=0, reasons=[0] * _N_REASONS)
+    cascade_stats.update(rounds=0, full_trips=0)
 
 
 reset_cascade_stats()
@@ -194,7 +211,6 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
     trips, elim, act, new = zero.clone(), zero.clone(), zero.clone(), zero.clone()
     trunc = torch.zeros(B, dtype=torch.bool, device=dev)
-    shifts = torch.arange(_N_REASONS, dtype=torch.int32, device=dev)
     active = has_any_line(cfg, colour)
     board_reasons, board_full, rounds = zero.clone(), zero.clone(), 0
     while True:
@@ -233,8 +249,6 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
         rounds += 1
         cascade_stats["rounds"] += 1
         cascade_stats["full_trips"] += fidx.numel()
-        froze = ((r2[:, None] >> shifts) & 1).sum(0).tolist()
-        cascade_stats["reasons"] = [a + b for a, b in zip(cascade_stats["reasons"], froze)]
     last_cascade.update(reasons=board_reasons, full_trips=board_full, rounds=rounds)
     return colour, kind, elim, act, new, trips, trunc | has_any_line(cfg, colour)
 
@@ -275,7 +289,8 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
     the cascade and the playability loop.
 
     The cascade is ``fused_cascade`` without specials and
-    ``fused_specials_cascade`` then ``settled_mask_sp`` with them.
+    ``fused_specials_cascade`` then ``settled_mask_sp`` with them; its call
+    runs in span ``cascade`` with ``rounds`` (1 for K1's one launch).
 
     Returns (colour, kind, key, eliminations, is_comb, new_specials,
     activated, shuffled, post_mask, truncated, trips).
@@ -299,9 +314,11 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
         )
         both = trandom.split(key_c)
         key_moved, sub = both[:, 0], both[:, 1].contiguous()
-        c_colour, c_kind, elim, act, new, trips, trunc = fused_specials_cascade(
-            cfg, moved, moved_kind, sub
-        )
+        with span("cascade") as sp:
+            c_colour, c_kind, elim, act, new, trips, trunc = fused_specials_cascade(
+                cfg, moved, moved_kind, sub
+            )
+            sp.set(rounds=last_cascade["rounds"])
         kmask = settled_mask_sp(cfg, c_colour, c_kind)
         # new specials filled holes: they count as eliminations (`board.py:378`)
         elim = comb_elim + elim + new
@@ -310,7 +327,8 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
     else:
         both = trandom.split(key)
         key_moved, sub = both[:, 0], both[:, 1].contiguous()
-        c_colour, elim, trips, trunc, kmask = fused_cascade(cfg, moved, sub)
+        with span("cascade", rounds=1):  # K1 runs the whole cascade in one launch
+            c_colour, elim, trips, trunc, kmask = fused_cascade(cfg, moved, sub)
         c_kind = kind  # all-normal before and after the cascade
         comb, new, act = false, zero, zero
 

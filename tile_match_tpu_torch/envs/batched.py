@@ -19,6 +19,7 @@ from ..config import EnvConfig
 from ..engine import generate_board, reset
 from ..ops.mask_sp import settled_mask_sp
 from ..parity import resolve_device
+from ..profiling import span
 from ..state import EnvState, StepInfo
 from .fused import batched_step_fused
 
@@ -63,26 +64,30 @@ def batched_step(
     episode's, while reward and done refer to the finished one.
     ``eff_mask``: the previous TimeStep's ``info.effective_actions``, to skip
     recomputing the current mask.
-    """
-    if eff_mask is None:
-        eff_mask = settled_mask_sp(cfg, states.colour.contiguous(), states.kind.contiguous())
-    next_states, rewards, dones, infos = batched_step_fused(
-        cfg, states, actions, eff_mask, compute_post_mask=not auto_reset
-    )
 
-    if auto_reset and bool(dones.any()):
-        idx = dones.nonzero()[:, 0]
-        k = trandom.split(next_states.key[idx])[:, 1]
-        colour, kind, key, mask, _gave_up = generate_board(cfg, k)
-        next_states = EnvState(
-            colour=next_states.colour.index_copy(0, idx, colour),
-            kind=next_states.kind.index_copy(0, idx, kind),
-            timer=next_states.timer.index_fill(0, idx, 0),
-            key=next_states.key.index_copy(0, idx, key),
+    Runs in span ``batched_step`` with ``boards`` and ``regenerated``.
+    """
+    with span("batched_step", boards=states.colour.shape[0], regenerated=0) as sp:
+        if eff_mask is None:
+            eff_mask = settled_mask_sp(cfg, states.colour.contiguous(), states.kind.contiguous())
+        next_states, rewards, dones, infos = batched_step_fused(
+            cfg, states, actions, eff_mask, compute_post_mask=not auto_reset
         )
-        infos = dataclasses.replace(
-            infos, effective_actions=infos.effective_actions.index_copy(0, idx, mask)
-        )
+
+        if auto_reset and bool(dones.any()):
+            idx = dones.nonzero()[:, 0]
+            k = trandom.split(next_states.key[idx])[:, 1]
+            colour, kind, key, mask, _gave_up = generate_board(cfg, k)
+            next_states = EnvState(
+                colour=next_states.colour.index_copy(0, idx, colour),
+                kind=next_states.kind.index_copy(0, idx, kind),
+                timer=next_states.timer.index_fill(0, idx, 0),
+                key=next_states.key.index_copy(0, idx, key),
+            )
+            infos = dataclasses.replace(
+                infos, effective_actions=infos.effective_actions.index_copy(0, idx, mask)
+            )
+            sp.set(regenerated=idx.numel())
 
     ts = TimeStep(
         obs_board=next_states.board,
@@ -99,8 +104,9 @@ def random_effective(key, ts: TimeStep, offset: int = 0) -> torch.Tensor:
     a board has none: ``jax.random.categorical`` over the masked logits
     from one key int64[2], as the JAX ``rollout``'s default policy draws.
     ``offset``: the global index of the first board, where these are a
-    rank's rows of a larger batch."""
-    return masked_categorical(key, ts.info.effective_actions, offset)
+    rank's rows of a larger batch.  Runs in span ``draw``."""
+    with span("draw"):
+        return masked_categorical(key, ts.info.effective_actions, offset)
 
 
 def masked_categorical(key, mask, offset: int = 0) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 from .. import cuda_build
 from .. import random as trandom
 from ..config import EnvConfig
+from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
 from .effective import effective_mask_settled
 from .lines import has_any_line, line_union_mask
@@ -72,6 +73,7 @@ def _kernel(R: int, C: int, device: int):
     return fn
 
 
+@kernel_span("fused_cascade")
 def fused_cascade(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
     """The cascade of ``cascade_reference``, as one CUDA kernel launch on a
     CUDA device; on CPU tensors, ``cascade_reference`` itself."""

@@ -32,6 +32,7 @@ import torch
 from .. import cuda_build
 from .. import random as trandom
 from ..config import EnvConfig
+from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
 from .lines import _row_col_ids, extension_lengths, has_any_line
 from .runs import BIG, _cummax, _cummin_rev, colour_run_extents
@@ -461,6 +462,7 @@ def _kernel(R: int, C: int, device: int):
     return fn
 
 
+@kernel_span("cascade_sp_chunk")
 def cascade_sp_chunk(
     cfg: EnvConfig, colour, kind, sub_keys, trips, elim, frozen, limit: int
 ):

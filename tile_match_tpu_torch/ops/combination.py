@@ -29,6 +29,7 @@ import torch
 
 from .. import cuda_build
 from ..config import EnvConfig, KIND_BOMB, KIND_COOKIE, KIND_NORMAL
+from ..profiling import kernel_span
 from .activate import OP_BOMB2, OP_H_LASER, OP_MASKSCAN, OP_V_LASER, machine_init, push_frame, run_machine
 
 # Kernel launches so far; a run resets it to see which kernels it went through.
@@ -183,6 +184,7 @@ def raise_caps(cfg: EnvConfig, caps: torch.Tensor, live: torch.Tensor) -> None:
         raise RuntimeError(f"activation_steps_max exceeded: chain truncated with {n} frames live")
 
 
+@kernel_span("combination_trip")
 def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
     """The combination branch of the boards where ``comb`` (`board.py:
     357-366`): colour, kind int32[B, R, C], key int64[B, 2] threefry words,

@@ -19,6 +19,7 @@ import torch
 
 from .. import cuda_build
 from ..config import EnvConfig
+from ..profiling import kernel_span
 from .effective import effective_mask_settled
 
 # Kernel launches so far; a run resets it to see which kernels it went through.
@@ -37,6 +38,7 @@ def _kernel(R: int, C: int, device: int):
     return fn
 
 
+@kernel_span("settled_mask_sp")
 def settled_mask_sp(cfg: EnvConfig, colour: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
     """bool[B, A]: ``effective_mask_settled`` of settled boards, with or
     without specials, as one CUDA kernel launch on a CUDA device; on CPU

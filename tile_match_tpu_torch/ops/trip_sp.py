@@ -22,6 +22,7 @@ import torch
 
 from .. import cuda_build
 from ..config import EnvConfig
+from ..profiling import kernel_span
 
 # Kernel launches so far; a run resets it to see which kernels it went through.
 launches = 0
@@ -76,6 +77,7 @@ def raise_caps(cfg: EnvConfig, caps: torch.Tensor, lines: torch.Tensor) -> None:
         )
 
 
+@kernel_span("specials_trip")
 def specials_trip(cfg: EnvConfig, colour, kind, sub, trips):
     """One full-machinery trip of n boards: colour, kind int32[n, R, C], sub
     int64[n, 2] threefry keys, trips int32[n] (each board's trips so far,

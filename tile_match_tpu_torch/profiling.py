@@ -1,11 +1,21 @@
 """Tracing and throughput of the PyTorch port (counterpart of
 ``tile_match_tpu.profiling``, on ``torch.profiler``).
 
+Program spans: ``span(name, **attrs)`` marks a part of the step (the
+batched step, the draw, regeneration, the playability loop, the cascade,
+each kernel wrapper's call) with host-integer counts as attributes.  A
+span records only while a ``torch.profiler`` session runs; otherwise it is
+one flag check and a shared no-op object.  Its times are ``time.time_ns()``,
+the profiler's own time base, so a reader can cut the profile's device
+operations by span.  ``spans()`` returns the log, ``clear_spans()`` empties
+it.  Spans are plain Python, never ``record_function`` ranges, so they put
+nothing on the device's timeline.
+
 ``trace(logdir)`` is a ``torch.profiler`` context that writes a Chrome
-trace into ``logdir`` (a no-op for ``None``); ``timed_windows`` times the
-batched step under the random effective policy, keyed as the JAX
-package's, and ``measure_throughput`` reports its best window.  As a CLI,
-with the JAX package's flags:
+trace into ``logdir`` (a no-op for ``None``), the program's spans in it;
+``timed_windows`` times the batched step under the random effective
+policy, keyed as the JAX package's, and ``measure_throughput`` reports its
+best window.  As a CLI, with the JAX package's flags:
 
     python -m tile_match_tpu_torch.profiling --rows 10 --cols 10 --colours 4 \
         --batch 1024 --steps 32 [--reps 3] [--no-specials] [--trace DIR] [--device cpu]
@@ -21,46 +31,147 @@ policy, then ``--steps`` steps under ``torch.profiler`` (no auto-reset falls
 in the window).  Prints, for the window: wall time per step, device busy
 time and share (the union of kernel intervals on the card), kernel launches
 per step and those of each of the port's kernels (their wrappers' counts),
-device time of the port's CUDA kernels against all other device work, and
-the ten kernels with the most device time.  Then ``--steps`` more
-steps without the profiler, with a host clock (after a device
-synchronisation) around the step's parts — the combination branch (K5's
-wrapper ``combination_trip``), the specials cascade and its kernel
-launches (K2, K4), the post-move mask (K3) and the playability loop —
-printed in ms per step (nested parts count in their callers too).
+device time of the port's CUDA kernels against all other device work, the
+ten kernels with the most device time, and by program span the ms a step,
+the ms with the device idle, the kernels started and the launches made
+inside it (``span_table``; nested spans count in their callers too).
 With ``--dqn`` the step is ``models.dqn.make_dqn``'s train step (hidden
-512, default epsilon schedule) on a batch of ``--batch`` boards, and the
-launches a step are also split between the env step, the epsilon-greedy
-draw (``act_greedy_or_random``) and the rest (network passes, loss,
-backward, Adam).  Every number is the card's; the card's name and power
-limit head the output.  Imports no JAX.
+512, default epsilon schedule) on a batch of ``--batch`` boards, its
+epsilon-greedy draw (``act_greedy_or_random``) in a span of its own, and
+the launches a step outside the env step and the draw are printed too
+(network passes, loss, backward, Adam).  Every number is the card's; the
+card's name and power limit head the output.  Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
+import functools
 import json
+import os
+import socket
 import sys
 import time
+
+from torch.autograd import _profiler_enabled
 
 PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel", "specials_trip_kernel",
                 "combination_trip_kernel")
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of [start, end) intervals, in microseconds."""
-    total, cur_s, cur_e = 0.0, None, None
+class Span:
+    """One record of the span log: ``name``, ``start_ns`` and ``end_ns``
+    (``time.time_ns()``; ``end_ns`` None while open), ``parent`` (the
+    enclosing span's index in the log, -1 for a root), ``step`` (the index
+    of the ``batched_step`` span it belongs to; a root ``draw`` takes the
+    step it feeds; -1 for none) and ``attrs``, host-integer counts."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "step", "attrs")
+
+    def __init__(self, name, start_ns, parent, step, attrs):
+        self.name, self.start_ns, self.end_ns = name, start_ns, None
+        self.parent, self.step, self.attrs = parent, step, attrs
+
+    def set(self, **attrs) -> None:
+        """Add counts known only at the span's end."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.time_ns()
+        if _open and _log[_open[-1]] is self:
+            _open.pop()
+
+
+class _Off:
+    """The span of an untraced call: records nothing."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_OFF = _Off()
+_log: list = []  # every Span recorded, in the order they opened
+_open: list = []  # indices of the open spans, innermost last
+_draws: list = []  # root draws waiting for the step they feed
+
+
+def span(name: str, **attrs):
+    """A context manager marking a part of the program as span ``name``
+    with counts ``attrs``; it records only while a ``torch.profiler``
+    session runs (``torch.autograd._profiler_enabled()``), and adds no
+    device work or synchronisation either way."""
+    if not _profiler_enabled():
+        return _OFF
+    i = len(_log)
+    parent = _open[-1] if _open else -1
+    if parent >= 0:
+        step = _log[parent].step
+    elif name == "batched_step":
+        step = i
+        for d in _draws:
+            d.step = i
+        _draws.clear()
+    else:
+        step = -1
+    rec = Span(name, time.time_ns(), parent, step, attrs)
+    if parent < 0 and name == "draw":
+        _draws.append(rec)
+    _log.append(rec)
+    _open.append(i)
+    return rec
+
+
+def kernel_span(name: str):
+    """Decorator of a kernel wrapper ``fn(cfg, colour, ...)``: each call in
+    span ``name`` with ``boards``, the launch's batch (``colour``'s rows)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(cfg, colour, *args, **kwargs):
+            if not _profiler_enabled():
+                return fn(cfg, colour, *args, **kwargs)
+            with span(name, boards=colour.shape[0]):
+                return fn(cfg, colour, *args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def spans() -> list:
+    """The span log: every ``Span`` recorded since the last ``clear_spans()``."""
+    return _log
+
+
+def clear_spans() -> None:
+    _log.clear()
+    _open.clear()
+    _draws.clear()
+
+
+def _merged(intervals) -> list:
+    """The union of [start, end) intervals as sorted disjoint [start, end]
+    pairs."""
+    out = []
     for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
         else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+            out.append([s, e])
+    return out
 
 
 def kernel_modules() -> dict:
@@ -75,18 +186,41 @@ def kernel_modules() -> dict:
 @contextlib.contextmanager
 def trace(logdir: str | None):
     """``torch.profiler`` trace context writing a Chrome trace
-    (``*.pt.trace.json``) into ``logdir``; a no-op when logdir is None.
-    Traces the card's kernels too where there is a card."""
+    (``<host>_<pid>.<ns>.pt.trace.json``) into ``logdir``, the program's
+    spans of the session in it as complete events of thread 0 on the
+    trace's own time base; a no-op when logdir is None.  Traces the card's
+    kernels too where there is a card."""
     if logdir is None:
         yield
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile
+
+    first = len(_log)
+
+    def write(prof):
+        os.makedirs(logdir, exist_ok=True)
+        path = os.path.join(logdir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            chrome = json.load(f)
+        base = chrome.get("baseTimeNanoseconds", 0)
+        pid = os.getpid()
+        events = chrome["traceEvents"]
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+                       "args": {"name": "program spans"}})
+        for s in _log[first:]:
+            if s.end_ns is not None:
+                events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": 0,
+                               "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                               "args": dict(s.attrs, step=s.step, parent=s.parent)})
+        with open(path, "w") as f:
+            json.dump(chrome, f)
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+    with profile(activities=activities, on_trace_ready=write):
         yield
 
 
@@ -239,6 +373,57 @@ def main(argv=None) -> int:
     return 0
 
 
+def _kineto_events(prof) -> list:
+    """(name, on the card, start ns, end ns) of every event of a finished
+    profile, on the spans' time base (kineto's unix ns)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def _covered(busy, ends, a, b) -> float:
+    """Length of [a, b) that ``busy`` (sorted disjoint intervals, ``ends``
+    their ends) covers."""
+    total = 0
+    for s, e in busy[bisect.bisect_right(ends, a):]:
+        if s >= b:
+            break
+        total += min(e, b) - max(s, a)
+    return total
+
+
+def span_table(records, device_ops, launches, steps: int) -> dict:
+    """By span name, a step: ``ms`` inside the spans, ``idle_ms`` of it in
+    which no device operation of ``device_ops`` [(name, start, end)] runs,
+    ``kernels`` (device operations but memcpy and memset) started inside,
+    ``launches`` (the host's launch calls, by their start times) made
+    inside, and ``calls``.  Times in ns on the spans' base; nested spans
+    count in their callers too."""
+    busy = _merged((s, e) for _, s, e in device_ops)
+    ends = [e for _, e in busy]
+    kernels = sorted(s for n, s, _ in device_ops
+                     if "memcpy" not in n.lower() and "memset" not in n.lower())
+    launches = sorted(launches)
+
+    def inside(starts, ivs):
+        return sum(bisect.bisect_left(starts, e) - bisect.bisect_left(starts, s) for s, e in ivs)
+
+    by_name = {}
+    for r in records:
+        if r.end_ns is not None:
+            by_name.setdefault(r.name, []).append((r.start_ns, r.end_ns))
+    out = {}
+    for name, ivs in by_name.items():
+        merged = _merged(ivs)
+        ns = sum(e - s for s, e in merged)
+        idle = ns - sum(_covered(busy, ends, s, e) for s, e in merged)
+        out[name] = {"ms": ns / 1e6 / steps, "idle_ms": idle / 1e6 / steps,
+                     "kernels": inside(kernels, merged) / steps,
+                     "launches": inside(launches, merged) / steps, "calls": len(ivs) / steps}
+    return out
+
+
 def profile_step(argv) -> int:
     ap = argparse.ArgumentParser(description="profile the port's step on the card")
     ap.add_argument("--config", type=int, default=3)
@@ -250,7 +435,7 @@ def profile_step(argv) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA card", file=sys.stderr)
@@ -267,25 +452,21 @@ def profile_step(argv) -> int:
         colour = tuple(n for n in colour if n != "bomb")
     cfg = EnvConfig.create(R, C, K, moves, colourless_specials=colourless,
                            colour_specials=colour)
-    if 2 * args.steps + 4 >= moves:
+    if args.steps + 4 >= moves:
         raise SystemExit(f"--steps must leave the window before the reset at step {moves}")
-    parts = []  # (label) of the train step's parts whose launches are counted
     if args.dqn:
         from .models import dqn
 
         init_fn, train_step, _ = dqn.make_dqn(cfg, batch_size=args.batch, device=dev)
         key, k_init = trandom.split(trandom.PRNGKey(0, dev))
         state = init_fn(k_init)
+        act = dqn.act_greedy_or_random
 
-        def labelled(fn, label):
-            def wrapper(*a, **k):
-                with record_function(label):
-                    return fn(*a, **k)
-            return wrapper
+        def spanned_act(*a, **k):
+            with span("act_greedy_or_random"):
+                return act(*a, **k)
 
-        for name, label in (("batched_step", "env step"), ("act_greedy_or_random", "draw")):
-            setattr(dqn, name, labelled(getattr(dqn, name), label))
-            parts.append(label)
+        dqn.act_greedy_or_random = spanned_act
 
         def one_step():
             nonlocal state, key
@@ -310,6 +491,7 @@ def profile_step(argv) -> int:
     wrappers = kernel_modules()
     for m in wrappers.values():
         m.launches = 0
+    first = len(_log)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -317,70 +499,43 @@ def profile_step(argv) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # the labelled parts' ranges also appear on the device's timeline: not work
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in parts]
-    kernels = [e for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
-    launch_events = [e for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel")]
-    launches = len(launch_events)
+    events = _kineto_events(prof)
+    device_ops = [(name, s, e) for name, on_card, s, e in events if on_card]
+    launch_starts = [s for name, on_card, s, _ in events
+                     if not on_card and name in ("cudaLaunchKernel", "cuLaunchKernel")]
+    busy_ms = sum(e - s for s, e in _merged((s, e) for _, s, e in device_ops)) / 1e6
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for name, s, e in device_ops:
+        if "memcpy" not in name.lower() and "memset" not in name.lower():
+            by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     port_us = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNELS))
     other_us = sum(by_name.values()) - port_us
     n = args.steps
+    table = span_table(_log[first:], device_ops, launch_starts, n)
     print(f"config {args.config} B={args.batch}, {n} profiled steps")
     print(f"wall {wall_ms / n:.3f} ms/step with the profiler on")
     print(f"device busy {busy_ms / n:.3f} ms/step, {100 * busy_ms / wall_ms:.1f}% of wall")
-    print(f"kernel launches {launches / n:.1f}/step; of the port's kernels: "
+    print(f"kernel launches {len(launch_starts) / n:.1f}/step; of the port's kernels: "
           f"{', '.join(f'{k} {m.launches / n:.2f}' for k, m in wrappers.items())}")
-    for label in parts:
-        spans = [e.time_range for e in prof.events() if e.name == label]
-        inside = sum(1 for e in launch_events
-                     if any(r.start <= e.time_range.start < r.end for r in spans))
-        launches -= inside
-        print(f"  in the {label}: {inside / n:.1f}/step")
-    if parts:
-        print(f"  in the rest of the train step: {launches / n:.1f}/step")
+    if args.dqn:
+        parts = sum(table.get(p, {}).get("launches", 0.0)
+                    for p in ("batched_step", "act_greedy_or_random"))
+        print(f"  in the rest of the train step: {len(launch_starts) / n - parts:.1f}/step")
     print(f"device time: port kernels {port_us / 1e3 / n:.3f} ms/step, "
           f"other device work {other_us / 1e3 / n:.3f} ms/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3 / n:9.3f} ms/step  {name[:100]}")
-
-    # host-clock breakdown of the step's parts
-    from . import engine
-
-    spent = {}
-
-    def timed(module, name):
-        fn = getattr(module, name)
-
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
-            return out
-
-        setattr(module, name, wrapper)
-
-    for module, name in ((engine, "combination_trip"), (engine, "make_playable"),
-                         (engine, "fused_specials_cascade"), (engine, "cascade_sp_chunk"),
-                         (engine, "specials_trip"), (engine, "settled_mask_sp")):
-        timed(module, name)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        one_step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"host-clock breakdown over {n} more steps: {wall_ms / n:.3f} ms/step in all")
-    for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
-        print(f"  {sec * 1e3 / n:9.3f} ms/step  {name}")
+    print("by program span, a step (nested spans count in their callers too):")
+    print(f"  {'span':<22}{'ms':>10}{'idle ms':>10}{'kernels':>10}{'launches':>10}{'calls':>8}")
+    for name, row in sorted(table.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {name:<22}{row['ms']:10.3f}{row['idle_ms']:10.3f}{row['kernels']:10.1f}"
+              f"{row['launches']:10.1f}{row['calls']:8.2f}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # run as the package's module, so that the CLI reads the span log the
+    # program records into (``python -m`` runs a second copy of this file)
+    from tile_match_tpu_torch import profiling
+
+    sys.exit(profiling.main())

@@ -7,7 +7,8 @@ Phases, one line each or more; any failure exits non-zero:
   1. needs a CUDA device; prints the card's name and power limit;
   2. builds the five CUDA kernels from tile_match_tpu_torch/csrc/ — each
      once for every board shape of at most 32 by 32 that the run uses and
-     once for larger boards — one nvcc a library, all at once, and prints
+     once for larger boards — and the threefry words (one library for
+     every shape), one nvcc a library, all at once, and prints
      their registers and spills and the boards each keeps in flight per SM
      at 10x10 and 36x36;
   3. holds each kernel against its plain PyTorch version on the card, bit
@@ -44,6 +45,11 @@ Phases, one line each or more; any failure exits non-zero:
      of its launch in step 20 of config 3 at B=16384: as they are, with
      every flag clear and with only the longest chain's board flagged,
      with the chains' micro-steps by the plain machine (``k5_readings``);
+     then the threefry words (``random.py`` on CUDA tensors) against the
+     plain version at the main path's shapes, each one launch, timed
+     beside its bound and the plain version's time: one key's split,
+     categorical over 16384 x 180 (and its uniform launch alone) and
+     draw_colour_grid on 16384 keys (``check_threefry``);
   4-19 run with the plain settled mask, the plain trip and the plain
      combination branch refused on CUDA tensors (``plain_mask_refused``,
      ``plain_trip_refused``, ``plain_combination_refused``): K3 computes
@@ -54,7 +60,8 @@ Phases, one line each or more; any failure exits non-zero:
      (``tools.parity_check.replay_fixture``), every field;
   5. runs config 1 (10x10, 4 colours, 30 moves, no specials) at batch 16384
      for 32 auto-resetting steps under a random effective policy, checks
-     that K1 and K3 ran on every step, prints the launches a step, and
+     that K1, K3 and the threefry words (the move's split) ran on every
+     step, prints the launches a step, and
      times the steps;
   6. runs config 3 (the same with cookie, both lasers and bomb), the
      flagship, the same way: K5, K2, K4 and K3 on every step, board
@@ -225,11 +232,13 @@ NO_BOMB = (1, 1, 1, 0)
 # phases 5-7, the batched main paths at 10x10x4, 30 moves: name -> (tag,
 # specials, the kernels every step must launch)
 MAIN_PATHS = {
-    "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp")),
+    "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp", "threefry_words")),
     "3": ("phase 6 (config 3)", ALL_SPECIALS,
-          ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
+          ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp",
+           "threefry_words")),
     "3-no-bomb": ("phase 7 (config 3 without the bomb)", NO_BOMB,
-                  ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")),
+                  ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp",
+                   "threefry_words")),
 }
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
@@ -267,6 +276,9 @@ OPS_PER_REFILL = 2 * 20 * 3
 OPS_PER_TRIP_KEYS = 3 * 20 * 3
 # the combination branch's keys: split(key), then split(kd) for the refill
 OPS_PER_COMB_KEYS = 4 * 20 * 3
+# one threefry-2x32 hash, by the count above (the random words of
+# random.py's kernel, csrc/threefry_words.cu)
+OPS_PER_HASH = 20 * 3
 # K5's latency floor: the longest chain's micro-steps, each at least one
 # dependent warp vote and one shuffle (~25 cycles of latency each on
 # Hopper: an estimate, not a measurement), at the H100 SXM's boost clock
@@ -697,7 +709,68 @@ def check_kernels(device, smi):
     rec["settled_mask_sp"]["max_abs_err"] = err3
     rec["specials_trip"] = check_trip(device, smi)
     rec["combination_trip"] = check_combination(device, smi)
+    rec["threefry_words"] = check_threefry(device, smi)
     return rec
+
+
+def check_threefry(device, smi) -> dict:
+    """Phase 3, the threefry kernel (``random.py`` on CUDA tensors) against
+    the plain version on the card at the main path's shapes: one key's
+    split (the harness's and the move's), categorical over MAIN_BATCH boards
+    of 180 actions (the policy draw; the kernel's launch is its uniforms)
+    and draw_colour_grid over MAIN_BATCH keys (a regeneration iteration's
+    randint); each timed as called and queued, with the bound of the
+    kernel's launch and the plain version's time.  Returns the kernels-line
+    record (the categorical's uniform launch, each case's under ``cases``)."""
+    import torch
+
+    from tile_match_tpu_torch import random as trandom
+    from tile_match_tpu_torch.ops.board_ops import draw_colour_grid
+
+    cfg = _config(10, 10, 4)
+    A, n = cfg.num_actions, cfg.flat_size
+    key = trandom.PRNGKey(SEED, device)
+    keys = trandom.plain_split(key, MAIN_BATCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    logits = torch.where(torch.rand(MAIN_BATCH, A, generator=gen, device=device) < 0.3, 0.0, -torch.inf)
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def plain_categorical():
+        u = trandom.plain_uniform(key, logits.shape, tiny, 1.0)
+        return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
+
+    cases = (  # name, the kernel path, the plain version, its launch (bytes, operations)
+        ("split, one key", lambda: trandom.split(key), lambda: trandom.plain_split(key),
+         (16 + 32, 2 * OPS_PER_HASH)),
+        (f"categorical {MAIN_BATCH}x{A}", lambda: trandom.categorical(key, logits), plain_categorical,
+         (16 + 4 * MAIN_BATCH * A, MAIN_BATCH * A * OPS_PER_HASH)),
+        (f"uniform {MAIN_BATCH}x{A} (categorical's launch)",
+         lambda: trandom.uniform(key, logits.shape, tiny, 1.0),
+         lambda: trandom.plain_uniform(key, logits.shape, tiny, 1.0),
+         (16 + 4 * MAIN_BATCH * A, MAIN_BATCH * A * OPS_PER_HASH)),
+        (f"draw_colour_grid {MAIN_BATCH} keys", lambda: draw_colour_grid(keys, cfg),
+         lambda: trandom.plain_randint(keys, (10, 10), 1, 5),
+         (16 * MAIN_BATCH + 4 * MAIN_BATCH * n, MAIN_BATCH * n * 4 * OPS_PER_HASH)),
+    )
+    out = {}
+    for name, kernel, plain, (nbytes, ops) in cases:
+        before = trandom.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        check(trandom.launches == before + 1, f"threefry {name}: {trandom.launches - before} launches")
+        want = plain()
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"threefry {name}: the kernel differs from the plain version")
+        ms, queued = _kernel_ms(kernel, reps=50)
+        plain_ms = _time_ms(plain, reps=5)
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = dict(ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"phase 3: threefry {name}: kernel == plain; kernel {ms:.4f} ms (queued "
+              f"{queued:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+    head = out[cases[2][0]]
+    print(f"phase 3 ok: threefry words: one launch a call, equal to the plain version ({smi})")
+    return dict(max_abs_err=0, **head, cases=out)
 
 
 def frozen_trip_inputs(cfg, B, seed, device):
@@ -1158,7 +1231,7 @@ def main_paths(device, smi):
         print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
 
     # 5-7. the batched main paths; each kernel's launches summed over them
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in _kernel_modules()}
     for tag, specials, required in MAIN_PATHS.values():
         run = drive(_config(10, 10, 4, 30, specials), device, smi, tag, required)
         for name, n in run["launches"].items():
@@ -1290,8 +1363,10 @@ def _kernel_modules():
     import importlib.util
 
     names = {name: f"tile_match_tpu_torch.ops.{mod}" for name, (mod, _, _) in KERNELS.items()}
-    return {name: importlib.import_module(m) for name, m in names.items()
+    names["threefry_words"] = "tile_match_tpu_torch.random"
+    mods = {name: importlib.import_module(m) for name, m in names.items()
             if importlib.util.find_spec(m) is not None}
+    return {name: m for name, m in mods.items() if hasattr(m, "launches")}
 
 
 def _launch_counts():
@@ -2213,7 +2288,7 @@ def main() -> int:
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in LIBRARY_SHAPES.items()
-            for R, C in shapes]
+            for R, C in shapes] + [("threefry_words", None)]
     cuda_build.build_all(libs)
     stems = [src if shape is None else f"{src}-{shape[0]}x{shape[1]}" for src, shape in libs]
     for lib in libs:
@@ -2273,7 +2348,15 @@ def main() -> int:
             "library_ms": None,
         }
         for name, (_, src, replaces) in KERNELS.items()
-    ]}))
+    ] + [{
+        "name": "threefry_words",
+        "route": "cuda",
+        "source": "tile_match_tpu_torch/csrc/threefry_words.cu",
+        "replaces": None,  # jax.random's threefry is XLA's, no Pallas kernel
+        "launches": launches["threefry_words"],
+        **rec["threefry_words"],
+        "library_ms": None,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -115,7 +115,8 @@ def test_bench_loop_equals_run_chunk(idx):
     assert rewards.tolist() == sums
     assert len(run["step_ms"]) == reps and all(len(w) == chunk for w in run["step_ms"])
     assert run["dones"] == [0, 0] and set(run["launches"]) == {
-        "fused_cascade", "cascade_sp_chunk", "settled_mask_sp", "specials_trip", "combination_trip"}
+        "fused_cascade", "cascade_sp_chunk", "settled_mask_sp", "specials_trip", "combination_trip",
+        "threefry_words"}
 
 
 def _small_run(monkeypatch):

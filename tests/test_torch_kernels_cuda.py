@@ -44,7 +44,7 @@ def _libraries():
                   + K5_CASES}
         cuda_build.build_all([(src, cuda_build.shape_of(R, C))
                               for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp", "combination")
-                              for R, C in shapes])
+                              for R, C in shapes] + ["threefry_words"])
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -520,3 +520,109 @@ def test_specials_env_runs_every_combination_on_k5(cuda_device):
             assert tcomb.launches == before + 10
     for g, w in zip(*outs):
         assert torch.equal(g, w)
+
+
+def _tf_keys(M, seed, device):
+    keys = np.random.default_rng(seed).integers(0, 1 << 32, size=(M, 2), dtype=np.uint64)
+    keys[:2] = [[0, 0], [0xFFFFFFFF, 0xFFFFFFFF]][:M]
+    return torch.as_tensor(keys.astype(np.int64), device=device)
+
+
+# (name, the call on keys of the given device, launches a call on the card)
+TF_CASES = [
+    ("split-one-key", lambda d: trandom.split(_tf_keys(2, 1, d)[1]), 1),
+    ("split-batch-offset", lambda d: trandom.split(_tf_keys(2, 2, d)[0], 16384, 5 * 16384), 1),
+    ("split-strided", lambda d: trandom.split(trandom.split(_tf_keys(4096, 3, d))[:, 1]), 2),
+    ("fold_in-int32", lambda d: trandom.fold_in(
+        _tf_keys(4096, 4, d), torch.arange(-5, 4091, dtype=torch.int32, device=d)), 1),
+    ("fold_in-int", lambda d: trandom.fold_in(_tf_keys(4096, 5, d), (1 << 32) - 1), 1),
+    ("random_bits", lambda d: trandom.random_bits(_tf_keys(2, 6, d)[0], (16384, 180), 7), 1),
+    ("uniform", lambda d: trandom.uniform(_tf_keys(2, 7, d)[0], (16384, 180),
+                                          np.finfo(np.float32).tiny, 1.0, 180), 1),
+    ("draw_colour_grid", lambda d: trandom.randint(_tf_keys(16384, 8, d), (10, 10), 1, 5), 1),
+    ("randint-wide", lambda d: trandom.randint(_tf_keys(300, 9, d), (33,), -7, (1 << 31) - 7), 1),
+    ("randint-tensor-maxval", lambda d: trandom.randint(
+        _tf_keys(300, 10, d), (10,), 1, torch.arange(300, device=d)[:, None] % 9 + 2), 3),
+    ("permutation", lambda d: trandom.permutation(_tf_keys(4096, 11, d), 100), 2),
+    ("bits-offset-above-2**31", lambda d: trandom.random_bits(_tf_keys(2, 12, d)[0], (3,), (1 << 31) + 5), 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,call,n_launches", TF_CASES, ids=[c[0] for c in TF_CASES])
+def test_threefry_kernel_matches_plain_version(cuda_device, name, call, n_launches):
+    """random.py on the card (the threefry kernel) equals its plain int64
+    version on the CPU word for word, one launch a split, fold_in,
+    random_bits, uniform or randint."""
+    before = trandom.launches
+    got = call(cuda_device)
+    torch.cuda.synchronize()
+    assert trandom.launches == before + n_launches
+    want = call(torch.device("cpu"))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_threefry_categorical_on_card_uses_the_kernel_words(cuda_device):
+    """categorical on the card: the kernel's uniforms, then torch's two logs
+    and argmax on the card, as the plain uniforms would give there."""
+    key = _tf_keys(2, 13, cuda_device)[1]
+    logits = torch.where(torch.rand(16384, 180, generator=torch.Generator().manual_seed(0)) < 0.3,
+                         0.0, -torch.inf).to(cuda_device)
+    before = trandom.launches
+    got = trandom.categorical(key, logits, offset=180)
+    torch.cuda.synchronize()
+    assert trandom.launches == before + 1
+    u = trandom.uniform(key.cpu(), logits.shape, np.finfo(np.float32).tiny, 1.0, 180).to(cuda_device)
+    assert torch.equal(got, torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1))
+
+
+@pytest.mark.cuda
+def test_threefry_launches_in_span_only_under_profiler(cuda_device):
+    """Each launch is one program span ``threefry`` with the words it
+    writes, recorded only while a profiler runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tile_match_tpu_torch import profiling
+
+    keys = _tf_keys(300, 14, cuda_device)
+    profiling.clear_spans()
+    trandom.split(keys, 3)
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        trandom.split(keys, 3)
+        trandom.randint(keys, (10, 10), 1, 5)
+        trandom.fold_in(keys, 7)
+        torch.cuda.synchronize()
+    got = [(s.name, s.attrs) for s in profiling.spans()]
+    profiling.clear_spans()
+    assert got == [("threefry", {"words": 300 * 3 * 2}), ("threefry", {"words": 300 * 100}),
+                   ("threefry", {"words": 300 * 2})]
+
+
+def test_threefry_plain_version_on_cpu_and_other_devices_refused(monkeypatch):
+    """On CPU tensors random.py runs its plain version and never loads the
+    kernel's library; a device that is neither CPU nor CUDA raises."""
+
+    def refused():
+        raise AssertionError("the threefry library was loaded for CPU tensors")
+
+    monkeypatch.setattr(trandom, "_lib", refused)
+    keys = torch.tensor([[0, 42], [7, 0xFFFFFFFF]], dtype=torch.int64)
+    before = trandom.launches
+    trandom.split(keys, 3)
+    trandom.fold_in(keys, torch.tensor([1, 2]))
+    trandom.random_bits(keys, (5,))
+    trandom.randint(keys, (4,), 0, 10)
+    trandom.randint(keys, (4,), 0, torch.tensor(10))
+    trandom.uniform(keys, (3,))
+    trandom.categorical(keys[0], torch.zeros(2, 6))
+    trandom.permutation(keys, 9)
+    assert trandom.launches == before
+    meta = torch.zeros(2, dtype=torch.int64, device="meta")
+    for call in (lambda: trandom.split(meta), lambda: trandom.fold_in(meta, 1),
+                 lambda: trandom.random_bits(meta, (3,)), lambda: trandom.randint(meta, (3,), 0, 4),
+                 lambda: trandom.uniform(meta, (3,))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()

@@ -28,6 +28,7 @@ import torch
 from chip_smoke import corner_boards
 from tests.test_torch_specials import sprinkled
 from tile_match_tpu_torch import cuda_build
+from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.cuda_build import CSRC
 from tile_match_tpu_torch.ops.cascade import cascade_reference
@@ -181,9 +182,11 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     with open(tmp_path / "block.cuh", "a") as f:  # included through mask.cuh / threefry.cuh
         f.write("// edited\n")
     assert all(cuda_build.digest(n) != after[n] for n in names)
-    # a board shape is a library of its own
+    # a board shape is a library of its own, but for a source that reads none
     for n in ("cascade", "mask_sp"):
         assert len({cuda_build.digest(n, shape) for shape in (None, (10, 10), (10, 9))}) == 3
+    assert not cuda_build.takes_shape("threefry_words")
+    assert len({cuda_build.digest("threefry_words", shape) for shape in (None, (10, 10))}) == 1
 
 
 def _k1_run(k1, cfg, colour, keys):
@@ -544,3 +547,108 @@ def test_settled_mask_size_check_takes_one_board(tmp_path_factory):
     assert lib.tmt_settled_mask_sp_smem(10, 10) < 2048
     with pytest.raises(ValueError, match="shared memory"):
         cuda_build.check_fits(card, "settled_mask_sp", 160, 160, "settled_mask_sp")
+
+
+# ---- csrc/threefry_words.cu: random.py's words, one launch a call ----------
+
+_TF_HOST = {
+    "tmt_threefry_words": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                           ctypes.c_uint, ctypes.c_int, ctypes.c_void_p],
+    "tmt_threefry_uniform": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_uint, ctypes.c_float, ctypes.c_double, ctypes.c_double,
+                             ctypes.c_void_p],
+    "tmt_threefry_fold_in": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p],
+    "tmt_threefry_randint": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p],
+}
+
+
+@pytest.fixture(scope="module", params=[None, (10, 10)], ids=["any-shape", "10x10"])
+def host_threefry(request, tmp_path_factory):
+    """``csrc/threefry_words.cu`` built for the host, with no board shape
+    and with the one ``tmt_bench`` builds every source under."""
+    lib = _host_build(tmp_path_factory, "threefry_words", request.param)
+    fns = {}
+    for name, args in _TF_HOST.items():
+        fn = getattr(lib, f"{name}_host")
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _tf_keys(M, seed):
+    """M keys int64[M, 2], the extreme words among them."""
+    keys = np.random.default_rng(seed).integers(0, 1 << 32, size=(M, 2), dtype=np.uint64)
+    keys[:3] = [[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], [0, 0xFFFFFFFF]][:M]
+    return torch.from_numpy(keys.astype(np.int64))
+
+
+# (function, keys, arguments): keys "M" are M random keys, "strided" the
+# second halves of a split (a stride of 4 words), "one" a single key int64[2],
+# "broadcast" one key expanded over 300 rows (a stride of 0)
+_TF_CASES = (
+    [("split", "M=5", (num, off)) for num in (2, 3, 256) for off in (0, 7, (1 << 32) - num)]
+    + [("split", "strided", (2, 0)), ("split", "broadcast", (3, 11)), ("split", "one", (2, 0))]
+    + [("fold_in", "M=7", (0,)), ("fold_in", "M=7", ((1 << 32) - 1,)), ("fold_in", "M=7", (-1,)),
+       ("fold_in", "M=300", ("int32",)), ("fold_in", "M=300", ("int64",)),
+       ("fold_in", "broadcast", ("int64",)), ("fold_in", "M=7", ("scalar-tensor",))]
+    + [("random_bits", "one", ((1,), 0)), ("random_bits", "one", ((100,), 7)),
+       ("random_bits", "one", ((64, 180), 64 * 180 * 3)), ("random_bits", "M=300", ((100,), 0)),
+       ("random_bits", "strided", ((10, 10), (1 << 32) - 100))]
+    + [("randint", "M=300", ((10, 10), lo, lo + k)) for k in (1, 4, 5, 7, 1 << 31) for lo in (0, 1)]
+    + [("randint", "strided", ((7,), 3, 2)), ("randint", "one", ((1000,), -5, 10**6))]
+    + [("uniform", "one", ((64, 180), 0.0, 1.0, 0)),
+       ("uniform", "one", ((64, 180), float(np.finfo(np.float32).tiny), 1.0, 180)),
+       ("uniform", "M=300", ((13,), -2.5, 3.0, 0))]
+)
+
+
+def _tf_key_arg(kind, seed):
+    if kind == "one":
+        return _tf_keys(3, seed)[1]
+    if kind == "strided":
+        return trandom.split(_tf_keys(300, seed))[:, 1]
+    if kind == "broadcast":
+        return _tf_keys(3, seed)[2].expand(300, 2)
+    return _tf_keys(int(kind[2:]), seed)
+
+
+def _tf_call(fn, keys, args, seed):
+    """``random.<fn>(keys, *args)``, a fold_in's data made from its tag."""
+    if fn != "fold_in":
+        return getattr(trandom, fn)(keys, *args)
+    (data,) = args
+    lead = keys.shape[:-1]
+    rng = np.random.default_rng(seed + 1)
+    if data in ("int32", "int64"):
+        lo = -(1 << 31) if data == "int32" else -(1 << 40)
+        vals = rng.integers(lo, -lo, size=lead)
+        vals.flat[:2] = [0, -1 if data == "int32" else (1 << 32) - 1]
+        data = torch.from_numpy(vals.astype(np.int32 if data == "int32" else np.int64))
+    elif data == "scalar-tensor":
+        data = torch.tensor(123456789, dtype=torch.int64)
+    return trandom.fold_in(keys, data)
+
+
+@pytest.mark.parametrize("fn,keys,args", _TF_CASES, ids=[f"{f}-{k}-{i}" for i, (f, k, _) in enumerate(_TF_CASES)])
+def test_threefry_words_match_plain(host_threefry, monkeypatch, fn, keys, args):
+    """Each entry point, through ``random.py``'s own wrapper (its key
+    strides, broadcasts and dtypes), equals the plain int64 version word for
+    word: the wrapper's launch runs the host build instead of the card."""
+    seed = len(str(args)) + 17
+    k = _tf_key_arg(keys, seed)
+    want = _tf_call(fn, k, args, seed)
+    calls = []
+
+    def host_launch(name, device, words, *cargs):
+        calls.append((name, words))
+        assert host_threefry[name](*cargs) == 0
+
+    monkeypatch.setattr(trandom, "_on_card", lambda keys: True)
+    monkeypatch.setattr(trandom, "_launch", host_launch)
+    got = _tf_call(fn, k, args, seed)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert len(calls) == 1  # one launch a call

@@ -64,8 +64,9 @@ CONFIGS = [
 # bench.py's batch of each config
 CONFIG_BATCH = [32768, 16384, 16384, 16384, 8192]
 # the kernels each config's step must launch
-PATH_KERNELS = {False: ("fused_cascade",),
-                True: ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp")}
+PATH_KERNELS = {False: ("fused_cascade", "threefry_words"),
+                True: ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp",
+                       "threefry_words")}
 
 
 def make_config(idx: int):

@@ -70,10 +70,15 @@ TMT_DEV uint32_t draw_word(uint32_t k0, uint32_t k1, uint32_t cell) {
   return x0 ^ x1;
 }
 
-// A colour from the words of the two keys: JAX's unsigned double-width
-// remainder.
+// jax.random.randint's offset in [0, K) from the words of the two keys: JAX's
+// unsigned double-width remainder, every product wrapped to 32 bits.
+TMT_DEV uint32_t randint_offset(uint32_t hi, uint32_t lo, uint32_t K, uint32_t mult) {
+  return ((hi % K) * mult + lo % K) % K;
+}
+
+// A colour in 1..K from the words of the two keys.
 TMT_DEV int colour_from(uint32_t hi, uint32_t lo, uint32_t K, uint32_t mult) {
-  return 1 + static_cast<int>(((hi % K) * mult + lo % K) % K);
+  return 1 + static_cast<int>(randint_offset(hi, lo, K, mult));
 }
 
 // Colour of flat cell `cell`.

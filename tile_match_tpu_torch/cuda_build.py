@@ -7,7 +7,9 @@ through another header) and of the flags, so an edited source or shared
 header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1 to
 K5) take their board shape at compile time: a library is built for each
 board shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``),
-and one without a shape serves every larger board (``shape_of``).
+and one without a shape serves every larger board (``shape_of``).  A
+source that reads no board shape (``takes_shape``: the threefry words) is
+built once, without one, whatever shape it is asked for.
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU-only test machines import every
 module but never build.
@@ -66,6 +68,16 @@ def sources(name: str) -> list[Path]:
     return seen
 
 
+def takes_shape(name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` or a header it includes reads the board
+    shape it is compiled for (``TMT_ROWS``)."""
+    return any("TMT_ROWS" in path.read_text() for path in sources(name))
+
+
+def _shape(name: str, shape):
+    return shape if shape is not None and takes_shape(name) else None
+
+
 def shape_of(R: int, C: int):
     """The board shape the kernels' library for an R x C board is built
     for: (R, C) when both are at most 32, else None (the library whose
@@ -86,6 +98,7 @@ def _stem(name: str, shape) -> str:
 def digest(name: str, shape=None) -> str:
     """Hash of the flags (with the board shape, if any), ``csrc/<name>.cu``
     and every header it includes."""
+    shape = _shape(name, shape)
     h = hashlib.sha1(" ".join(_flags(shape)).encode())
     for path in sorted(sources(name)):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
@@ -95,6 +108,7 @@ def digest(name: str, shape=None) -> str:
 def build(name: str, shape=None) -> Path:
     """Compile ``csrc/<name>.cu`` (for board shape ``shape`` = (R, C), or
     for any) unless an up-to-date library exists."""
+    shape = _shape(name, shape)
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{_stem(name, shape)}-{digest(name, shape)}.so"
     if out.exists():
@@ -116,6 +130,7 @@ def build(name: str, shape=None) -> Path:
 def load(name: str, shape=None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` for board shape ``shape``
     (or for any), built if needed."""
+    shape = _shape(name, shape)
     stem = _stem(name, shape)
     lib = _loaded.get(stem)
     if lib is None:
@@ -168,7 +183,8 @@ def build_all(libs) -> None:
     """Build several libraries at once, one ``nvcc`` process each: each
     item a source name, or (name, shape); an item named twice is built
     once."""
-    libs = list(dict.fromkeys((lib, None) if isinstance(lib, str) else tuple(lib) for lib in libs))
+    libs = [(lib, None) if isinstance(lib, str) else tuple(lib) for lib in libs]
+    libs = list(dict.fromkeys((name, _shape(name, shape)) for name, shape in libs))
     with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
         for _ in pool.map(lambda lib: build(*lib), libs):
             pass

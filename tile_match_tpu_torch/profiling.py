@@ -58,7 +58,7 @@ import time
 from torch.autograd import _profiler_enabled
 
 PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel", "specials_trip_kernel",
-                "combination_trip_kernel")
+                "combination_trip_kernel", "threefry_")
 
 
 class Span:
@@ -177,10 +177,11 @@ def _merged(intervals) -> list:
 def kernel_modules() -> dict:
     """The modules of the port's kernel wrappers by kernel name; each counts
     its kernel's launches in ``launches``."""
+    from . import random
     from .ops import cascade, cascade_sp, combination, mask_sp, trip_sp
 
     return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp,
-            "specials_trip": trip_sp, "combination_trip": combination}
+            "specials_trip": trip_sp, "combination_trip": combination, "threefry_words": random}
 
 
 @contextlib.contextmanager

@@ -20,18 +20,38 @@ flat index ``i`` alone, so a slice of a draw is computed on its own:
 ``split``, ``random_bits``, ``uniform`` and ``categorical`` take an
 ``offset``, the flat index of their first word in the whole draw.  A rank
 that holds boards ``[o, o + b)`` of a batch draws exactly their words.
+
+On CUDA tensors ``split``, ``fold_in``, ``random_bits``, ``uniform`` and
+``randint`` with an integer ``maxval`` compute their words in one launch of
+a CUDA kernel (``csrc/threefry_words.cu``, built at first use), and
+``categorical`` and ``permutation`` take their words from them; ``randint``
+with a tensor ``maxval`` takes its words from the kernel and its remainder
+from torch.  On CPU tensors the plain version runs: the ``plain_*``
+functions, int64 torch ops on any device, which the tests hold against
+``jax.random`` and the kernel against.  Any other device raises.
+``launches`` counts the kernel's launches; each runs in program span
+``threefry`` with ``words``, the 32-bit words it writes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from . import cuda_build
+from .profiling import span as program_span
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_SPLIT, _BITS = 0, 1  # tmt_threefry_words' modes
+
+# Kernel launches so far; a run resets it to see which kernels it went through.
+launches = 0
 
 
 def PRNGKey(seed: int, device) -> torch.Tensor:
@@ -57,40 +77,121 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def _counters(n: int, offset: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel's library (one for every shape and card), its entry
+    points typed: built and loaded once."""
+    lib = cuda_build.load("threefry_words")
+    P, L, U, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
+    for name, args in (
+        ("tmt_threefry_words", [P, L, L, L, U, I, P, P]),
+        ("tmt_threefry_uniform", [P, L, L, L, U, ctypes.c_float, ctypes.c_double, ctypes.c_double, P, P]),
+        ("tmt_threefry_fold_in", [P, L, P, L, I, U, L, P, P]),
+        ("tmt_threefry_randint", [P, L, L, L, U, L, P, P]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = I
+    return lib
+
+
+def _on_card(keys: torch.Tensor) -> bool:
+    """Whether ``keys`` takes the kernel (a CUDA tensor) or the plain
+    version (a CPU tensor); any other device raises."""
+    if keys.device.type == "cpu":
+        return False
+    if keys.device.type != "cuda":
+        raise ValueError(f"random: unsupported device {keys.device}")
+    return True
+
+
+def _flat_keys(keys: torch.Tensor):
+    """``keys`` int64[..., 2] as (k, M): M keys, key m at ``k[m]``, its two
+    words adjacent (a strided view where one describes them, else a copy)."""
+    if keys.dtype != torch.int64 or keys.dim() < 1 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be an int64[..., 2] tensor, got {keys.dtype}{list(keys.shape)}")
+    k = keys.reshape(-1, 2)
+    if k.stride(1) != 1:
+        k = k.contiguous()
+    return k, k.shape[0]
+
+
+def _launch(name: str, device: torch.device, words: int, *args) -> None:
+    """Entry point ``name`` of the kernel's library on ``device``'s current
+    stream, in span ``threefry``; raises if the launch failed."""
+    global launches
+    with program_span("threefry", words=words), torch.cuda.device(device):
+        err = getattr(_lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launches += 1
+
+
+def _words(keys: torch.Tensor, n: int, offset: int, mode: int) -> torch.Tensor:
+    """The kernel's words of keys int64[..., 2] at counters ``[offset,
+    offset + n)``: int64[..., n, 2] pairs (``_SPLIT``) or int64[..., n]
+    (``_BITS``)."""
+    _check_counters(n, offset)
+    k, M = _flat_keys(keys)
+    out = torch.empty(*keys.shape[:-1], n, *((2,) if mode == _SPLIT else ()),
+                      dtype=torch.int64, device=keys.device)
+    if out.numel():
+        _launch("tmt_threefry_words", keys.device, out.numel(),
+                k.data_ptr(), k.stride(0), M, n, offset, mode, out.data_ptr())
+    return out
+
+
+def _check_counters(n: int, offset: int) -> None:
     if offset < 0 or offset + n > (1 << 32):
         raise ValueError(f"counters [{offset}, {offset + n}) outside [0, 2**32)")
+
+
+def _counters(n: int, offset: int, device) -> torch.Tensor:
+    _check_counters(n, offset)
     return torch.arange(offset, offset + n, dtype=torch.int64, device=device)
 
 
 def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: int64[..., 2] -> int64[..., num, 2]; keys
     ``[offset, offset + num)`` of a larger split."""
-    counts = _counters(num, offset, keys.device)
-    b0, b1 = threefry2x32(
-        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
-    )
-    return torch.stack([b0, b1], dim=-1)
+    if _on_card(keys):
+        return _words(keys, num, offset, _SPLIT)
+    return plain_split(keys, num, offset)
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: ``data`` is an int or an integer tensor that
     broadcasts against ``keys[..., 0]``."""
-    if not torch.is_tensor(data):
-        data = torch.tensor(data, dtype=torch.int64, device=keys.device)
-    data = data.to(torch.int64) & MASK32
-    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
-    return torch.stack([y0, y1], dim=-1)
+    if not _on_card(keys):
+        return plain_fold_in(keys, data)
+    # an int is passed as a value, an int32 or int64 tensor where it lies
+    # (broadcast by strides)
+    if torch.is_tensor(data):
+        if data.device != keys.device:
+            raise ValueError(f"fold_in: data on {data.device}, keys on {keys.device}")
+        lead = torch.broadcast_shapes(keys.shape[:-1], data.shape)
+        if data.dtype not in (torch.int32, torch.int64):
+            data = data.to(torch.int64)
+        d = data.expand(lead).reshape(-1)
+        keys = keys.expand(*lead, 2)
+        ptr, d_stride, d_bytes, scalar = d.data_ptr(), d.stride(0), d.element_size(), 0
+    else:
+        lead = keys.shape[:-1]
+        ptr, d_stride, d_bytes, scalar = None, 0, 8, int(data) & MASK32
+    k, N = _flat_keys(keys)
+    out = torch.empty(*lead, 2, dtype=torch.int64, device=keys.device)
+    if N:
+        _launch("tmt_threefry_fold_in", keys.device, 2 * N,
+                k.data_ptr(), k.stride(0), ptr, d_stride, d_bytes, scalar, N, out.data_ptr())
+    return out
 
 
 def random_bits(keys: torch.Tensor, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
     """32 random bits per element: int64[..., *shape] of uint32 values,
     the words from flat index ``offset`` on."""
-    counts = _counters(math.prod(shape), offset, keys.device)
-    b0, b1 = threefry2x32(
-        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
-    )
-    return (b0 ^ b1).reshape(*keys.shape[:-1], *shape)
+    if _on_card(keys):
+        return _words(keys, math.prod(shape), offset, _BITS).reshape(*keys.shape[:-1], *shape)
+    return plain_random_bits(keys, shape, offset)
 
 
 def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> torch.Tensor:
@@ -98,41 +199,39 @@ def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> to
 
     ``maxval`` is an int or an integer tensor that broadcasts against
     ``shape`` (a bound computed on the card, read without a host sync)."""
-    if torch.is_tensor(maxval):
-        span = maxval.to(torch.int64) - minval
-        span = torch.where(span <= 0, 1, span)
-    else:
-        span = max(maxval - minval, 1)
-        if span > (1 << 31):
-            raise ValueError(f"span {span} too wide for int32 randint")
-    halves = split(keys)
-    hi = random_bits(halves[..., 0, :], shape)
-    lo = random_bits(halves[..., 1, :], shape)
-    # JAX's unsigned double-width remainder in uint32 arithmetic: every
-    # product is wrapped to 32 bits (products stay below 2**62 in int64).
-    mult = (((65536 % span) ** 2) & MASK32) % span
-    off = (((hi % span) * mult) & MASK32) + (lo % span)
-    off = (off & MASK32) % span
-    return (minval + off).to(torch.int32)
+    span = _randint_span(minval, maxval)
+    if not _on_card(keys):
+        return plain_randint(keys, shape, minval, maxval)
+    if torch.is_tensor(span):
+        halves = split(keys)
+        return _randint_from(random_bits(halves[..., 0, :], shape),
+                             random_bits(halves[..., 1, :], shape), minval, span)
+    n = math.prod(shape)
+    k, M = _flat_keys(keys)
+    out = torch.empty(*keys.shape[:-1], *shape, dtype=torch.int32, device=keys.device)
+    if out.numel():
+        _launch("tmt_threefry_randint", keys.device, M * n,
+                k.data_ptr(), k.stride(0), M, n, span, minval, out.data_ptr())
+    return out
 
 
 def uniform(
     keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0, offset: int = 0
 ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: the
-    top 23 bits of each word as the mantissa of a float in [1, 2), minus 1,
-    scaled into [minval, maxval).
-
-    XLA contracts the scaling ``u * (maxval - minval) + minval`` into one
-    fused multiply-add in float32.  The product of two float32 values is
-    exact in float64, so the sum is taken there and rounded to float32
-    once more; that equals the fused result except where the float64 sum
-    lands on a float32 tie, which cannot happen for [0, 1) or [tiny, 1)."""
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``
+    (``plain_uniform`` says how); on CUDA tensors the kernel computes the
+    same operations, each rounded on its own, in its one launch."""
+    if not _on_card(keys):
+        return plain_uniform(keys, shape, minval, maxval, offset)
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (random_bits(keys, shape, offset) >> 9) | 0x3F800000  # below 2**31
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    scaled = (floats.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)
-    return torch.clamp_min(scaled, float(lo))
+    n = math.prod(shape)
+    _check_counters(n, offset)
+    k, M = _flat_keys(keys)
+    out = torch.empty(*keys.shape[:-1], *shape, dtype=torch.float32, device=keys.device)
+    if out.numel():
+        _launch("tmt_threefry_uniform", keys.device, M * n, k.data_ptr(), k.stride(0), M, n,
+                offset, float(lo), float(hi - lo), float(lo), out.data_ptr())
+    return out
 
 
 def categorical(
@@ -162,3 +261,74 @@ def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+# ---- the plain version: int64 torch ops on any device ----------------------
+
+
+def plain_split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
+    counts = _counters(num, offset, keys.device)
+    b0, b1 = threefry2x32(
+        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
+    )
+    return torch.stack([b0, b1], dim=-1)
+
+
+def plain_fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    if not torch.is_tensor(data):
+        data = torch.tensor(data, dtype=torch.int64, device=keys.device)
+    data = data.to(torch.int64) & MASK32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def plain_random_bits(keys: torch.Tensor, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
+    counts = _counters(math.prod(shape), offset, keys.device)
+    b0, b1 = threefry2x32(
+        keys[..., 0, None], keys[..., 1, None], torch.zeros_like(counts), counts
+    )
+    return (b0 ^ b1).reshape(*keys.shape[:-1], *shape)
+
+
+def _randint_span(minval: int, maxval):
+    if torch.is_tensor(maxval):
+        span = maxval.to(torch.int64) - minval
+        return torch.where(span <= 0, 1, span)
+    span = max(maxval - minval, 1)
+    if span > (1 << 31):
+        raise ValueError(f"span {span} too wide for int32 randint")
+    return span
+
+
+def _randint_from(hi: torch.Tensor, lo: torch.Tensor, minval: int, span) -> torch.Tensor:
+    # JAX's unsigned double-width remainder in uint32 arithmetic: every
+    # product is wrapped to 32 bits (products stay below 2**62 in int64).
+    mult = (((65536 % span) ** 2) & MASK32) % span
+    off = (((hi % span) * mult) & MASK32) + (lo % span)
+    off = (off & MASK32) % span
+    return (minval + off).to(torch.int32)
+
+
+def plain_randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> torch.Tensor:
+    span = _randint_span(minval, maxval)
+    halves = plain_split(keys)
+    return _randint_from(plain_random_bits(halves[..., 0, :], shape),
+                         plain_random_bits(halves[..., 1, :], shape), minval, span)
+
+
+def plain_uniform(
+    keys: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0, offset: int = 0
+) -> torch.Tensor:
+    """The top 23 bits of each word as the mantissa of a float in [1, 2),
+    minus 1, scaled into [minval, maxval).
+
+    XLA contracts the scaling ``u * (maxval - minval) + minval`` into one
+    fused multiply-add in float32.  The product of two float32 values is
+    exact in float64, so the sum is taken there and rounded to float32
+    once more; that equals the fused result except where the float64 sum
+    lands on a float32 tie, which cannot happen for [0, 1) or [tiny, 1)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = (plain_random_bits(keys, shape, offset) >> 9) | 0x3F800000  # below 2**31
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    scaled = (floats.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)
+    return torch.clamp_min(scaled, float(lo))

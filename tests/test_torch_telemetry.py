@@ -30,6 +30,9 @@ KERNEL_SPANS = {"fused_cascade", "cascade_sp_chunk", "settled_mask_sp", "special
                 "combination_trip"}
 NEW_METRICS = ("cascade_ms", "cascade_idle_ms", "cascade_kernels", "regen_ms", "regen_idle_ms",
                "regen_kernels", "regen_loops", "regen_useful_share")
+# readers of the cascade's spans and of K2's device time, held on their own
+# in test_torch_bench_c4.py: they read nothing with the spans off
+ROUND_METRICS = ("cascade_rounds_max", "cascade_tail_share", "k4_boards_per_step", "k2_roofline")
 
 
 def _cpu_profile():
@@ -84,6 +87,8 @@ def test_traced_step_gives_the_span_tree(fresh_log, monkeypatch):
     parent = {i: log[s.parent].name for i, s in enumerate(log) if s.parent >= 0}
     for i, s in enumerate(log[2:], 2):
         if s.name in ("cascade_sp_chunk", "specials_trip"):
+            want = {"cascade_round"}
+        elif s.name == "cascade_round":
             want = {"cascade"}
         elif s.name == "settled_mask_sp":  # after the cascade, or after a shuffle
             want = {"batched_step", "playable"}
@@ -188,7 +193,7 @@ def test_span_table_cuts_device_time_by_span():
 def test_new_metrics_read_in_traced_tiny_runs(workload, fresh_log, monkeypatch):
     cell = manifest.cell(manifest.load(), workload)
     mine = [m for m in cell["per_layer"] if m["name"] in NEW_METRICS]
-    old = [m for m in cell["per_layer"] if m["name"] not in NEW_METRICS]
+    old = [m for m in cell["per_layer"] if m["name"] not in NEW_METRICS + ROUND_METRICS]
     assert {m["name"] for m in mine} == (set(NEW_METRICS) if workload.startswith("c3")
                                          else {n for n in NEW_METRICS if n.startswith("regen")})
     res = tiny_run(workload, PortProgram, trace=True, warmup_episodes=0)

@@ -200,7 +200,10 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     (K4, ``specials_trip``).  Every round moves each cascading board at
     least one trip forward — K2 runs a simple trip or freezes the board,
     and a frozen board takes its full trip — so the loop ends within
-    ``max_cascades`` rounds.
+    ``max_cascades`` rounds.  Each round runs in span ``cascade_round``
+    with ``boards``, the boards K2 takes, and ``frozen``, those K4 takes;
+    the span ends on the read of the next round's boards, so it holds the
+    wait for its own device work.
 
     Returns (colour, kind, elim, activated, new, trips, truncated), adds
     to ``cascade_stats`` and replaces ``last_cascade``.
@@ -212,43 +215,44 @@ def fused_specials_cascade(cfg: EnvConfig, colour, kind, sub_keys):
     trips, elim, act, new = zero.clone(), zero.clone(), zero.clone(), zero.clone()
     trunc = torch.zeros(B, dtype=torch.bool, device=dev)
     active = has_any_line(cfg, colour)
+    idx = active.nonzero()[:, 0]
     board_reasons, board_full, rounds = zero.clone(), zero.clone(), 0
-    while True:
-        idx = active.nonzero()[:, 0]
-        if idx.numel() == 0:
-            break
-        zn = torch.zeros(idx.numel(), dtype=torch.int32, device=dev)
-        c2, k2, t2, e2, n2, a2, fz, act2, r2 = cascade_sp_chunk(
-            cfg, colour[idx].contiguous(), kind[idx].contiguous(),
-            sub_keys[idx].contiguous(), trips[idx].contiguous(), zn, zn, limit=T,
-        )
-        colour = colour.index_copy(0, idx, c2)
-        kind = kind.index_copy(0, idx, k2)
-        trips = trips.index_copy(0, idx, t2)
-        elim.index_add_(0, idx, e2)
-        new.index_add_(0, idx, n2)
-        act.index_add_(0, idx, a2)
-        still = act2 & (t2 < T)
-
-        fidx = idx[fz > 0]
-        if fidx.numel():
-            c3, k3, e3, a3, n3, o3 = specials_trip(
-                cfg, colour[fidx], kind[fidx], sub_keys[fidx], trips[fidx]
+    while idx.numel():
+        with span("cascade_round", boards=idx.numel()) as sp:
+            zn = torch.zeros(idx.numel(), dtype=torch.int32, device=dev)
+            c2, k2, t2, e2, n2, a2, fz, act2, r2 = cascade_sp_chunk(
+                cfg, colour[idx].contiguous(), kind[idx].contiguous(),
+                sub_keys[idx].contiguous(), trips[idx].contiguous(), zn, zn, limit=T,
             )
-            colour = colour.index_copy(0, fidx, c3)
-            kind = kind.index_copy(0, fidx, k3)
-            trips.index_add_(0, fidx, torch.ones_like(e3))
-            elim.index_add_(0, fidx, e3)
-            act.index_add_(0, fidx, a3)
-            new.index_add_(0, fidx, n3)
-            trunc[fidx] |= o3
-            still[fz > 0] = has_any_line(cfg, c3) & (trips[fidx] < T)
-        active = torch.zeros_like(active).index_copy_(0, idx, still)
-        board_reasons[idx] |= r2
-        board_full.index_add_(0, fidx, torch.ones_like(fidx, dtype=torch.int32))
-        rounds += 1
-        cascade_stats["rounds"] += 1
-        cascade_stats["full_trips"] += fidx.numel()
+            colour = colour.index_copy(0, idx, c2)
+            kind = kind.index_copy(0, idx, k2)
+            trips = trips.index_copy(0, idx, t2)
+            elim.index_add_(0, idx, e2)
+            new.index_add_(0, idx, n2)
+            act.index_add_(0, idx, a2)
+            still = act2 & (t2 < T)
+
+            fidx = idx[fz > 0]
+            sp.set(frozen=fidx.numel())
+            if fidx.numel():
+                c3, k3, e3, a3, n3, o3 = specials_trip(
+                    cfg, colour[fidx], kind[fidx], sub_keys[fidx], trips[fidx]
+                )
+                colour = colour.index_copy(0, fidx, c3)
+                kind = kind.index_copy(0, fidx, k3)
+                trips.index_add_(0, fidx, torch.ones_like(e3))
+                elim.index_add_(0, fidx, e3)
+                act.index_add_(0, fidx, a3)
+                new.index_add_(0, fidx, n3)
+                trunc[fidx] |= o3
+                still[fz > 0] = has_any_line(cfg, c3) & (trips[fidx] < T)
+            active = torch.zeros_like(active).index_copy_(0, idx, still)
+            board_reasons[idx] |= r2
+            board_full.index_add_(0, fidx, torch.ones_like(fidx, dtype=torch.int32))
+            rounds += 1
+            cascade_stats["rounds"] += 1
+            cascade_stats["full_trips"] += fidx.numel()
+            idx = active.nonzero()[:, 0]
     last_cascade.update(reasons=board_reasons, full_trips=board_full, rounds=rounds)
     return colour, kind, elim, act, new, trips, trunc | has_any_line(cfg, colour)
 

@@ -235,10 +235,10 @@ MAIN_PATHS = {
     "1": ("phase 5 (config 1)", (0, 0, 0, 0), ("fused_cascade", "settled_mask_sp", "threefry_words")),
     "3": ("phase 6 (config 3)", ALL_SPECIALS,
           ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp",
-           "threefry_words")),
+           "threefry_words", "line_test")),
     "3-no-bomb": ("phase 7 (config 3 without the bomb)", NO_BOMB,
                   ("combination_trip", "cascade_sp_chunk", "specials_trip", "settled_mask_sp",
-                   "threefry_words")),
+                   "threefry_words", "line_test")),
 }
 MAIN_BATCH = 16384
 MAIN_STEPS = 32
@@ -279,6 +279,11 @@ OPS_PER_COMB_KEYS = 4 * 20 * 3
 # one threefry-2x32 hash, by the count above (the random words of
 # random.py's kernel, csrc/threefry_words.cu)
 OPS_PER_HASH = 20 * 3
+# the line test's work a cell (csrc/line_test.cu): eight neighbour
+# compares, their conjunctions and two sums
+OPS_PER_LINE_CELL = 16
+# phase 3's line test: the main paths' shapes, (R, C, K, B)
+LINE_TEST_SHAPES = ((10, 10, 4, 16384), (20, 20, 6, 8192))
 # K5's latency floor: the longest chain's micro-steps, each at least one
 # dependent warp vote and one shuffle (~25 cycles of latency each on
 # Hopper: an estimate, not a measurement), at the H100 SXM's boost clock
@@ -710,7 +715,49 @@ def check_kernels(device, smi):
     rec["specials_trip"] = check_trip(device, smi)
     rec["combination_trip"] = check_combination(device, smi)
     rec["threefry_words"] = check_threefry(device, smi)
+    rec["line_test"] = check_line_test(device, smi)
     return rec
+
+
+def check_line_test(device, smi) -> dict:
+    """Phase 3, the line test kernel (``ops/lines.py`` on CUDA tensors)
+    against its plain version, the run-extent scans on the CPU, bit for
+    bit at the main paths' shapes: ``run_member_mask`` and ``has_any_line``
+    on uniform random boards, one launch a call; each timed as called and
+    queued, with its bytes bound and the plain version's time on the card.
+    Returns the kernels-line record (10x10x4 B=MAIN_BATCH's mask, each
+    case's under ``cases``)."""
+    import torch
+
+    from tile_match_tpu_torch.ops import lines
+
+    out = {}
+    for R, C, K, B in LINE_TEST_SHAPES:
+        colour, _ = _random_inputs(R, C, K, B, seed=R * C + B, device=device)
+        cells = B * R * C
+        for what, fn, plain, out_bytes in (
+                ("member", lines.run_member_mask, lines.plain_run_member_mask, cells),
+                ("any", lines.has_any_line, lines.plain_has_any_line, B)):
+            name = f"{what} {R}x{C}x{K} B={B}"
+            before = lines.launches
+            got = fn(None, colour)
+            torch.cuda.synchronize()
+            check(lines.launches == before + 1,
+                  f"line test {name}: {lines.launches - before} launches")
+            want = plain(None, colour.cpu())
+            check(got.dtype == want.dtype and got.shape == want.shape
+                  and torch.equal(got.cpu(), want),
+                  f"line test {name}: the kernel differs from the plain version")
+            ms, queued = _kernel_ms(lambda: fn(None, colour), reps=50)
+            plain_ms = _time_ms(lambda: plain(None, colour), reps=5)
+            b_ms, b_by = bound(4 * cells + out_bytes, OPS_PER_LINE_CELL * cells)
+            out[name] = dict(ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"phase 3: line test {name}: kernel == plain ({int(want.sum())} true); kernel "
+                  f"{ms:.4f} ms (queued {queued:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({smi})")
+    head = out[f"member 10x10x4 B={MAIN_BATCH}"]
+    print(f"phase 3 ok: line test: one launch a call, equal to the plain version ({smi})")
+    return dict(max_abs_err=0, **head, cases=out)
 
 
 def check_threefry(device, smi) -> dict:
@@ -1145,7 +1192,7 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
     from tile_match_tpu_torch import engine
     from tile_match_tpu_torch import random as trandom
     from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
-    from tile_match_tpu_torch.ops.lines import has_any_line
+    from tile_match_tpu_torch.ops.lines import plain_has_any_line
 
     modules = _kernel_modules()
     env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
@@ -1189,7 +1236,8 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
     check(truncated * 10000 < board_steps, f"{tag}: {truncated} truncated board-steps of {board_steps}")
     R, C = cfg.num_rows, cfg.num_cols
     check(tuple(ts.obs_board.shape) == (MAIN_BATCH, 2, R, C), f"{tag}: obs_board shape")
-    check(not bool(has_any_line(cfg, states.colour).any()), f"{tag}: a settled board holds a line")
+    check(not bool(plain_has_any_line(cfg, states.colour.cpu()).any()),
+          f"{tag}: a settled board holds a line")
     kinds = states.kind
     check(bool(((kinds == -1) | ((kinds >= 1) & (kinds <= 4))).all()), f"{tag}: kind out of range")
     check(bool(((states.colour == 0) == (kinds == -1)).all()),
@@ -1364,6 +1412,7 @@ def _kernel_modules():
 
     names = {name: f"tile_match_tpu_torch.ops.{mod}" for name, (mod, _, _) in KERNELS.items()}
     names["threefry_words"] = "tile_match_tpu_torch.random"
+    names["line_test"] = "tile_match_tpu_torch.ops.lines"
     mods = {name: importlib.import_module(m) for name, m in names.items()
             if importlib.util.find_spec(m) is not None}
     return {name: m for name, m in mods.items() if hasattr(m, "launches")}
@@ -2288,7 +2337,7 @@ def main() -> int:
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in LIBRARY_SHAPES.items()
-            for R, C in shapes] + [("threefry_words", None)]
+            for R, C in shapes] + [("threefry_words", None), ("line_test", None)]
     cuda_build.build_all(libs)
     stems = [src if shape is None else f"{src}-{shape[0]}x{shape[1]}" for src, shape in libs]
     for lib in libs:
@@ -2355,6 +2404,14 @@ def main() -> int:
         "replaces": None,  # jax.random's threefry is XLA's, no Pallas kernel
         "launches": launches["threefry_words"],
         **rec["threefry_words"],
+        "library_ms": None,
+    }, {
+        "name": "line_test",
+        "route": "cuda",
+        "source": "tile_match_tpu_torch/csrc/line_test.cu",
+        "replaces": None,  # the JAX package's line test is XLA's, no Pallas kernel
+        "launches": launches["line_test"],
+        **rec["line_test"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -116,7 +116,7 @@ def test_bench_loop_equals_run_chunk(idx):
     assert len(run["step_ms"]) == reps and all(len(w) == chunk for w in run["step_ms"])
     assert run["dones"] == [0, 0] and set(run["launches"]) == {
         "fused_cascade", "cascade_sp_chunk", "settled_mask_sp", "specials_trip", "combination_trip",
-        "threefry_words"}
+        "threefry_words", "line_test"}
 
 
 def _small_run(monkeypatch):

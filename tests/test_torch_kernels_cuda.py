@@ -41,10 +41,10 @@ def _libraries():
     cascades take their board shape at compile time)."""
     if torch.cuda.is_available():
         shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES + K4_CASES
-                  + K5_CASES}
+                  + K5_CASES + LINE_SHAPES}
         cuda_build.build_all([(src, cuda_build.shape_of(R, C))
                               for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp", "combination")
-                              for R, C in shapes] + ["threefry_words"])
+                              for R, C in shapes] + ["threefry_words", "line_test"])
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -626,3 +626,141 @@ def test_threefry_plain_version_on_cpu_and_other_devices_refused(monkeypatch):
                  lambda: trandom.uniform(meta, (3,))):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+# ---- the line test (csrc/line_test.cu) --------------------------------------
+
+
+def line_boards(kind, R, C, K, B, seed):
+    """colour int32[B, R, C] for the line test.  ``random``: colours 1..K,
+    uniform.  ``sparse``: a line-free two-colour checkerboard (1, 2) with
+    colour 3 scattered on it, so that some boards hold a line and some do
+    not.  ``painted``: the checkerboard with one to three runs of colour 3
+    or 4, 3 cells up to a whole row or column long, each touching an edge
+    (column 0, column C - 1, row 0 or row R - 1).  ``zeros``: colours 0..K
+    with 0 a third of the cells, and a run of three or more zeros painted in
+    each board: zero-colour cells never join a run."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.indices((R, C))
+    checker = np.where((rows + cols) % 2 == 0, 1, 2).astype(np.int32)
+    if kind == "random":
+        colour = rng.integers(1, K + 1, size=(B, R, C))
+    elif kind == "sparse":
+        colour = np.where(rng.random((B, R, C)) < 0.2, 3, checker[None])
+    elif kind == "painted":
+        colour = checker[None].repeat(B, 0)
+        for b in range(B):
+            for _ in range(int(rng.integers(1, 4))):
+                pc = int(rng.integers(3, 5))
+                if rng.random() < 0.5 and C >= 3:
+                    n = int(rng.integers(3, C + 1))
+                    r = int(rng.choice([0, R - 1, int(rng.integers(0, R))]))
+                    c0 = 0 if rng.random() < 0.5 else C - n
+                    colour[b, r, c0:c0 + n] = pc
+                elif R >= 3:
+                    n = int(rng.integers(3, R + 1))
+                    c = int(rng.choice([0, C - 1, int(rng.integers(0, C))]))
+                    r0 = 0 if rng.random() < 0.5 else R - n
+                    colour[b, r0:r0 + n, c] = pc
+    elif kind == "zeros":
+        colour = np.where(rng.random((B, R, C)) < 1 / 3, 0, rng.integers(1, K + 1, size=(B, R, C)))
+        for b in range(B):
+            if rng.random() < 0.5 and C >= 3:
+                n, r = int(rng.integers(3, C + 1)), int(rng.integers(0, R))
+                colour[b, r, :n] = 0
+            elif R >= 3:
+                n, c = int(rng.integers(3, R + 1)), int(rng.integers(0, C))
+                colour[b, R - n:, c] = 0
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(np.ascontiguousarray(colour, dtype=np.int32))
+
+
+# (R, C, K): the configs' shapes (10x10 with 4 and 6 colours, 20x20x6), the
+# smallest config's, 32x32, rows or columns of 32 cells, an odd shape, and
+# 35x35 (beyond the other kernels' libraries of one shape); each with every
+# kind of ``line_boards``
+LINE_SHAPES = [(5, 5, 3), (10, 10, 4), (10, 10, 6), (20, 20, 6), (32, 32, 5), (6, 32, 4),
+               (32, 6, 4), (9, 7, 4), (35, 35, 6)]
+LINE_KINDS = ["random", "sparse", "painted", "zeros"]
+LINE_CASES = [(R, C, K, kind) for R, C, K in LINE_SHAPES for kind in LINE_KINDS]
+
+
+def line_case_ids(cases):
+    return [f"{R}x{C}x{K}-{kind}" for R, C, K, kind in cases]
+
+
+def plain_line_test(colour):
+    """The plain version's (member mask, any) on the CPU."""
+    from tile_match_tpu_torch.ops import lines as tl
+
+    colour = colour.cpu()
+    return tl.plain_run_member_mask(None, colour), tl.plain_has_any_line(None, colour)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,K,kind", LINE_CASES, ids=line_case_ids(LINE_CASES))
+def test_line_test_kernel_matches_plain_version(cuda_device, R, C, K, kind):
+    """The line test on the card equals the plain version bit for bit, one
+    launch a call."""
+    from tile_match_tpu_torch.ops import lines as tl
+
+    colour = line_boards(kind, R, C, K, 61, seed=R * C + K + LINE_KINDS.index(kind))
+    want_member, want_any = plain_line_test(colour)
+    assert 0 < int(want_any.sum()) or kind == "sparse"
+    x = colour.to(cuda_device)
+    before = tl.launches
+    member, any_ = tl.run_member_mask(None, x), tl.has_any_line(None, x)
+    torch.cuda.synchronize()
+    assert tl.launches == before + 2
+    assert torch.equal(member.cpu(), want_member)
+    assert torch.equal(any_.cpu(), want_any)
+
+
+@pytest.mark.cuda
+def test_line_test_one_board_empty_batch_and_strided_input(cuda_device):
+    """B = 1; B = 0 (no launch, empty outputs); strided views (a batch
+    stride, a transposed board) equal the plain version on the same view;
+    a 16,384-board launch; a colour that is not int32 is refused."""
+    from tile_match_tpu_torch.ops import lines as tl
+
+    big_cpu = line_boards("random", 10, 10, 4, 16384, seed=5)
+    big = big_cpu.to(cuda_device)
+    one = line_boards("painted", 20, 20, 6, 1, seed=6)
+    views = [lambda t: t[:1], lambda t: t[::3], lambda t: t.transpose(1, 2), lambda t: t]
+    assert not big[::3].is_contiguous() and not big.transpose(1, 2).is_contiguous()
+    for x, x_cpu in [(view(big), view(big_cpu)) for view in views] + [(one.to(cuda_device), one)]:
+        want_member, want_any = plain_line_test(x_cpu)
+        assert torch.equal(tl.run_member_mask(None, x).cpu(), want_member)
+        assert torch.equal(tl.has_any_line(None, x).cpu(), want_any)
+    empty = torch.zeros(0, 10, 10, dtype=torch.int32, device=cuda_device)
+    before = tl.launches
+    member, any_ = tl.run_member_mask(None, empty), tl.has_any_line(None, empty)
+    assert tl.launches == before
+    assert member.shape == (0, 10, 10) and member.dtype == torch.bool
+    assert any_.shape == (0,) and any_.dtype == torch.bool
+    with pytest.raises(ValueError):
+        tl.has_any_line(None, big[:4].to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_line_test_launches_in_span_only_under_profiler(cuda_device):
+    """Each launch is one program span ``line_test`` with the launch's
+    boards and its entry point, recorded only while a profiler runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tile_match_tpu_torch import profiling
+    from tile_match_tpu_torch.ops import lines as tl
+
+    x = line_boards("random", 10, 10, 4, 300, seed=7).to(cuda_device)
+    profiling.clear_spans()
+    tl.has_any_line(None, x)
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        tl.run_member_mask(None, x)
+        tl.has_any_line(None, x[:7])
+        torch.cuda.synchronize()
+    got = [(s.name, s.attrs) for s in profiling.spans()]
+    profiling.clear_spans()
+    assert got == [("line_test", {"boards": 300, "what": "member"}),
+                   ("line_test", {"boards": 7, "what": "any"})]

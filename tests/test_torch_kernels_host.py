@@ -26,6 +26,8 @@ import pytest
 import torch
 
 from chip_smoke import corner_boards
+from tests.test_torch_kernels_cuda import (LINE_CASES, LINE_KINDS, line_boards, line_case_ids,
+                                           plain_line_test)
 from tests.test_torch_specials import sprinkled
 from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch import random as trandom
@@ -652,3 +654,40 @@ def test_threefry_words_match_plain(host_threefry, monkeypatch, fn, keys, args):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
     assert len(calls) == 1  # one launch a call
+
+
+# ---- the line test, run-member mask and has-any-line ------------------------
+
+
+@pytest.fixture(scope="module")
+def host_line_test(tmp_path_factory):
+    """The line test's host build, (member, any): one library for every
+    board shape, as the card builds it."""
+    lib = _host_build(tmp_path_factory, "line_test")
+    fns = []
+    for what in ("member", "any"):
+        fn = getattr(lib, f"tmt_line_test_{what}_host")
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return fns
+
+
+@pytest.mark.parametrize("R,C,K,kind", LINE_CASES, ids=line_case_ids(LINE_CASES))
+def test_line_test_board_program_matches_plain(host_line_test, R, C, K, kind):
+    """The line test's board program (one thread a cell) equals
+    ``run_member_mask`` and ``has_any_line`` on random boards, boards of
+    which some are line-free, boards whose runs touch the edges, and boards
+    with zero-colour cells; a shape with no cells is refused."""
+    B = 61
+    colour = line_boards(kind, R, C, K, B, seed=R * C + K + LINE_KINDS.index(kind))
+    want_member, want_any = plain_line_test(colour)
+    assert int(want_any.sum()) > 0 and (kind != "sparse" or R * C > 100 or int(want_any.sum()) < B)
+    member_fn, any_fn = host_line_test
+    member = torch.empty(B, R, C, dtype=torch.bool)
+    any_ = torch.empty(B, dtype=torch.bool)
+    assert member_fn(colour.data_ptr(), member.data_ptr(), B, R, C) == 0
+    assert any_fn(colour.data_ptr(), any_.data_ptr(), B, R, C) == 0
+    assert torch.equal(member, want_member)
+    assert torch.equal(any_, want_any)
+    assert any_fn(colour.data_ptr(), any_.data_ptr(), 1, R, 0) == -1

@@ -44,7 +44,8 @@ def test_qnetwork_equals_the_recorded_flax_q():
 
 
 def test_entry_equals_the_recorded_jax_entry():
-    assert chip_smoke.check_entry("cpu") == {n: 0 for n in (*chip_smoke.KERNELS, "threefry_words")}
+    assert chip_smoke.check_entry("cpu") == {
+        n: 0 for n in (*chip_smoke.KERNELS, "threefry_words", "line_test")}
 
 
 def test_fixture_draws_and_q_are_up_to_date():

@@ -35,7 +35,8 @@ def mesh():
 
 def test_sharded_rollout_replays_the_recorded_jax_rollout(mesh):
     counts = chip_smoke.replay_sharded_rollout(mesh)
-    assert counts == {n: 0 for n in (*chip_smoke.KERNELS, "threefry_words")}  # plain versions on the CPU
+    # plain versions on the CPU
+    assert counts == {n: 0 for n in (*chip_smoke.KERNELS, "threefry_words", "line_test")}
 
 
 def test_sharded_train_steps_replay_the_recorded_jax_steps(mesh):

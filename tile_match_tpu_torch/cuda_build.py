@@ -8,8 +8,9 @@ header is rebuilt — and is loaded with ``ctypes``.  The kernels (K1 to
 K5) take their board shape at compile time: a library is built for each
 board shape of at most 32 by 32 that runs (``-DTMT_ROWS=R -DTMT_COLS=C``),
 and one without a shape serves every larger board (``shape_of``).  A
-source that reads no board shape (``takes_shape``: the threefry words) is
-built once, without one, whatever shape it is asked for.
+source that reads no board shape (``takes_shape``: the threefry words and
+the line test) is built once, without one, whatever shape it is asked
+for.
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU-only test machines import every
 module but never build.

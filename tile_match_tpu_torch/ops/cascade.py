@@ -26,7 +26,7 @@ from ..config import EnvConfig
 from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
 from .effective import effective_mask_settled
-from .lines import has_any_line, line_union_mask
+from .lines import line_union_mask, plain_has_any_line
 
 # Kernel launches so far; a run resets it to see which kernels it went through.
 launches = 0
@@ -45,7 +45,7 @@ def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tens
     elim = torch.zeros(B, dtype=torch.int32, device=colour.device)
     trips = torch.zeros(B, dtype=torch.int32, device=colour.device)
     for t in range(cfg.max_cascades):
-        active = has_any_line(cfg, colour)
+        active = plain_has_any_line(cfg, colour)
         if not bool(active.any()):
             break
         dmask = line_union_mask(cfg, colour) & active[:, None, None]
@@ -56,7 +56,7 @@ def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tens
         grid = draw_colour_grid(trandom.fold_in(sub_keys, t), cfg)
         colour, kind = apply_refill(colour, kind, grid)
         trips += active.to(torch.int32)
-    truncated = has_any_line(cfg, colour)
+    truncated = plain_has_any_line(cfg, colour)
     mask = effective_mask_settled(cfg, colour, kind)
     return colour, elim, trips, truncated, mask
 

@@ -34,7 +34,7 @@ from .. import random as trandom
 from ..config import EnvConfig
 from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
-from .lines import _row_col_ids, extension_lengths, has_any_line
+from .lines import _row_col_ids, extension_lengths, plain_has_any_line
 from .runs import BIG, _cummax, _cummin_rev, colour_run_extents
 
 # Kernel launches so far; a run resets it to see which kernels it went through.
@@ -419,7 +419,7 @@ def cascade_sp_reference(
     act = torch.zeros_like(new)
     reasons = torch.zeros_like(new)
     for _ in range(limit):
-        live = has_any_line(cfg, x) & (frozen == 0) & (trips < T)
+        live = plain_has_any_line(cfg, x) & (frozen == 0) & (trips < T)
         if not bool(live.any()):
             break
         idx = live.nonzero()[:, 0]
@@ -447,7 +447,7 @@ def cascade_sp_reference(
         x[idx] = xs
         k[idx] = ks
         trips[idx] += s
-    return x, k, trips, elim, new, act, frozen, has_any_line(cfg, x), reasons
+    return x, k, trips, elim, new, act, frozen, plain_has_any_line(cfg, x), reasons
 
 
 @functools.lru_cache(maxsize=None)

@@ -58,7 +58,7 @@ import time
 from torch.autograd import _profiler_enabled
 
 PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel", "specials_trip_kernel",
-                "combination_trip_kernel", "threefry_")
+                "combination_trip_kernel", "threefry_", "line_test_")
 
 
 class Span:
@@ -66,7 +66,8 @@ class Span:
     (``time.time_ns()``; ``end_ns`` None while open), ``parent`` (the
     enclosing span's index in the log, -1 for a root), ``step`` (the index
     of the ``batched_step`` span it belongs to; a root ``draw`` takes the
-    step it feeds; -1 for none) and ``attrs``, host-integer counts."""
+    step it feeds; -1 for none) and ``attrs``, host-integer counts (and
+    ``what``, the entry point of a ``line_test`` launch)."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "step", "attrs")
 
@@ -178,10 +179,11 @@ def kernel_modules() -> dict:
     """The modules of the port's kernel wrappers by kernel name; each counts
     its kernel's launches in ``launches``."""
     from . import random
-    from .ops import cascade, cascade_sp, combination, mask_sp, trip_sp
+    from .ops import cascade, cascade_sp, combination, lines, mask_sp, trip_sp
 
     return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp,
-            "specials_trip": trip_sp, "combination_trip": combination, "threefry_words": random}
+            "specials_trip": trip_sp, "combination_trip": combination, "threefry_words": random,
+            "line_test": lines}
 
 
 @contextlib.contextmanager

@@ -2,7 +2,7 @@
 """Time the PyTorch port's CUDA kernels on one card, for the port package
 of a given checkout.
 
-    python tools/torch_kernel_times.py [--root DIR] [--reps 20] [--trips-only]
+    python tools/torch_kernel_times.py [--root DIR] [--reps 20] [--trips-only | --line-test]
 
 ``--root`` is the root of a checkout whose ``tile_match_tpu_torch`` is
 imported and built (default: this one), so that two versions compare in
@@ -22,6 +22,13 @@ and the mean ms per launch of
   boards' chains by the plain machine (``K5_steps_max``, ``_p99``,
   ``_mean``; ``chip_smoke.k5_readings``); with ``--trips-only`` nothing
   else;
+
+- with ``--line-test`` (alone): ``ops.lines.run_member_mask`` and
+  ``has_any_line`` on CUDA tensors, whatever the checkout runs there (the
+  run-extent scans in torch ops, or one launch of ``csrc/line_test.cu``),
+  on uniform random boards at 10x10x4 B=16384 and B=256 and 20x20x6
+  B=8192, queued and as called (``line_*``); with the kernels a call runs
+  on the card, the boards with a line, and the outputs' digest;
 
 - ``chip_smoke.py`` phase 3's inputs at 10x10x4 B=16384: K1 on uniform
   random boards (also with no trip allowed, which leaves its load, mask
@@ -72,6 +79,8 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--trips-only", action="store_true", help="time K4 and K5 alone")
+    ap.add_argument("--line-test", action="store_true",
+                    help="time run_member_mask and has_any_line alone")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, HERE)
@@ -133,6 +142,11 @@ def main() -> int:
         return queued_ms(fn), chip_smoke._time_ms(fn, args.reps)
 
     rec = {"smi": smi, "root": root, "package": os.path.dirname(cascade.__file__)}
+    if args.line_test:
+        rec.update(line_test_times(dev, digest, args.reps, chip_smoke))
+        rec["outputs_sha1"] = digest.hexdigest()
+        print(json.dumps(rec))
+        return 0
     # K4 and K5 on their main-path inputs
     cfg_t, trip_in = chip_smoke.main_path_trip_inputs(dev)
     rec["K4_boards"] = int(trip_in[0].shape[0])
@@ -257,6 +271,40 @@ def main() -> int:
     } if summary else None
     print(json.dumps(rec))
     return 0
+
+
+def line_test_times(dev, digest, reps: int, chip_smoke) -> dict:
+    """The line test's times (ms a call, queued and as called) of the
+    imported package on uniform random boards, the kernels a call runs on
+    the card (by the profiler; one for the kernel, 49–50 for the scans) and
+    the boards with a line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tile_match_tpu_torch.ops import lines
+
+    rec = {}
+    for R, C, K, B in ((10, 10, 4, 16384), (20, 20, 6, 8192), (10, 10, 4, 256)):
+        colour, _ = chip_smoke._random_inputs(R, C, K, B, seed=R * C + B, device=dev)
+        for what, fn in (("member", lines.run_member_mask), ("any", lines.has_any_line)):
+            call = lambda: fn(None, colour)  # noqa: E731
+            out = call()
+            torch.cuda.synchronize()
+            digest.update(out.cpu().numpy().tobytes())
+            tag = f"line_{what}_{R}x{C}x{K}_b{B}"
+            rec[f"{tag}_ms"] = chip_smoke._queued_ms(call, reps)
+            rec[f"{tag}_called_ms"] = chip_smoke._time_ms(call, reps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            rec[f"{tag}_kernels"] = sum(
+                1 for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and not any(k in e.name().lower() for k in ("memcpy", "memset")))
+            if what == "any":
+                rec[f"line_{R}x{C}x{K}_b{B}_boards_with_a_line"] = int(out.sum())
+    return rec
 
 
 if __name__ == "__main__":

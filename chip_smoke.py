@@ -168,6 +168,8 @@ import time
 
 import numpy as np
 
+from tile_match_tpu_torch import cuda_build
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_CFG3 = os.path.join(ROOT, "tests", "data", "torch_port_fixture_cfg3.npz")
 FIXTURE_NOBOMB = os.path.join(ROOT, "tests", "data", "torch_port_fixture_nobomb.npz")
@@ -179,15 +181,16 @@ FIXTURE_GYM = os.path.join(ROOT, "tests", "data", "torch_port_gym_episodes.json"
 FIXTURE_DQN = os.path.join(ROOT, "tests", "data", "torch_port_fixture_dqn.npz")
 FIXTURE_SHARDED = os.path.join(ROOT, "tests", "data", "torch_port_fixture_sharded.npz")
 GOLDEN = os.path.join(ROOT, "tests", "golden_episodes.json")
-# name -> (module under tile_match_tpu_torch.ops, csrc source, TPU kernel replaced)
-KERNELS = {
-    "fused_cascade": ("cascade", "cascade", "tile_match_tpu/ops/pallas_cascade.py:1107"),
-    "cascade_sp_chunk": ("cascade_sp", "cascade_sp", "tile_match_tpu/ops/pallas_cascade.py:1434"),
-    "settled_mask_sp": ("mask_sp", "mask_sp", "tile_match_tpu/ops/pallas_cascade.py:1039"),
+# the TPU kernel each of the port's kernels (``cuda_build.KERNELS``)
+# replaces; the threefry words and the line test replace XLA's own
+REPLACES = {
+    "fused_cascade": "tile_match_tpu/ops/pallas_cascade.py:1107",
+    "cascade_sp_chunk": "tile_match_tpu/ops/pallas_cascade.py:1434",
+    "settled_mask_sp": "tile_match_tpu/ops/pallas_cascade.py:1039",
     # no Pallas kernel: the XLA program of the full-machinery trip
-    "specials_trip": ("trip_sp", "trip_sp", "tile_match_tpu/engine.py:173"),
+    "specials_trip": "tile_match_tpu/engine.py:173",
     # no Pallas kernel: the XLA combination round
-    "combination_trip": ("combination", "combination", "tile_match_tpu/envs/fused.py:469"),
+    "combination_trip": "tile_match_tpu/envs/fused.py:469",
 }
 SHAPES = ((10, 10, 4, 16384), (6, 6, 3, 1000), (20, 20, 6, 1024), (36, 36, 6, 256))
 # K1 alone: (R, C, K, B); it takes four warps a board below 8,192 boards a
@@ -703,11 +706,12 @@ def check_kernels(device, smi):
         colour, kind = sprinkled_inputs(R, C, K, B, seed=R * 10 + B, device=device)[:2]
         for flags in (ALL_SPECIALS, (0, 0, 0, 0)):
             cfg = _config(R, C, K, 30, flags)
-            before = mask_sp.launches
+            before = cuda_build.launches["settled_mask_sp"]
             got = mask_sp.settled_mask_sp(cfg, colour, kind)
             want = effective_mask_settled(cfg, colour, kind)
             torch.cuda.synchronize()
-            check(mask_sp.launches == before + 1, "K3: the wrapper did not launch the kernel")
+            check(cuda_build.launches["settled_mask_sp"] == before + 1,
+                  "K3: the wrapper did not launch the kernel")
             tag = f"K3 {R}x{C}x{K} B={B} any_special={cfg.any_special}"
             err3 = max(err3, _assert_equal((got,), (want,), ("mask",), tag))
         print(f"phase 3: K3 {R}x{C}x{K} B={B} kernel == plain with specials and without")
@@ -739,11 +743,11 @@ def check_line_test(device, smi) -> dict:
                 ("member", lines.run_member_mask, lines.plain_run_member_mask, cells),
                 ("any", lines.has_any_line, lines.plain_has_any_line, B)):
             name = f"{what} {R}x{C}x{K} B={B}"
-            before = lines.launches
+            before = cuda_build.launches["line_test"]
             got = fn(None, colour)
             torch.cuda.synchronize()
-            check(lines.launches == before + 1,
-                  f"line test {name}: {lines.launches - before} launches")
+            count = cuda_build.launches["line_test"] - before
+            check(count == 1, f"line test {name}: {count} launches")
             want = plain(None, colour.cpu())
             check(got.dtype == want.dtype and got.shape == want.shape
                   and torch.equal(got.cpu(), want),
@@ -802,10 +806,11 @@ def check_threefry(device, smi) -> dict:
     )
     out = {}
     for name, kernel, plain, (nbytes, ops) in cases:
-        before = trandom.launches
+        before = cuda_build.launches["threefry_words"]
         got = kernel()
         torch.cuda.synchronize()
-        check(trandom.launches == before + 1, f"threefry {name}: {trandom.launches - before} launches")
+        count = cuda_build.launches["threefry_words"] - before
+        check(count == 1, f"threefry {name}: {count} launches")
         want = plain()
         check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
               f"threefry {name}: the kernel differs from the plain version")
@@ -885,11 +890,12 @@ def check_trip(device, smi) -> dict:
         if R * C <= 1296:
             sets.append(("K2's frozen boards", frozen_trip_inputs(cfg, B, R * 5 + B, device)))
         for what, inputs in sets:
-            before = trip_sp.launches
+            before = cuda_build.launches["specials_trip"]
             got = trip_sp.specials_trip(cfg, *inputs)
             want = engine.specials_cascade_trip(cfg, *inputs)
             torch.cuda.synchronize()
-            check(trip_sp.launches == before + 1, "K4: the wrapper did not launch the kernel")
+            check(cuda_build.launches["specials_trip"] == before + 1,
+                  "K4: the wrapper did not launch the kernel")
             tag = f"K4 {R}x{C}x{K} {caps or ''} {what} ({inputs[0].shape[0]})"
             err = max(err, _assert_equal(got, want, names, tag))
             print(f"phase 3: {tag} kernel == plain in {', '.join(names)}; activated "
@@ -1043,11 +1049,12 @@ def check_combination(device, smi) -> dict:
         """K5 (on a copy: it updates the boards in place) against the plain
         branch; the unflagged boards untouched.  Returns K5's outputs."""
         nonlocal err
-        before = combination.launches
+        before = cuda_build.launches["combination_trip"]
         got = combination.combination_trip(cfg, *(t.clone() for t in inputs))
         want = engine.combination_branch(cfg, *inputs)
         torch.cuda.synchronize()
-        check(combination.launches == before + 1, f"{tag}: the wrapper did not launch the kernel")
+        check(cuda_build.launches["combination_trip"] == before + 1,
+              f"{tag}: the wrapper did not launch the kernel")
         err = max(err, _assert_equal(got, want, names, tag))
         comb = inputs[5]
         check(bool((got[3][~comb] == 0).all()) and torch.equal(got[0][~comb], inputs[0][~comb])
@@ -1194,12 +1201,10 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
     from tile_match_tpu_torch.envs.batched import BatchedTileMatchEnv
     from tile_match_tpu_torch.ops.lines import plain_has_any_line
 
-    modules = _kernel_modules()
     env = BatchedTileMatchEnv(cfg, MAIN_BATCH, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    for m in modules.values():
-        m.launches = 0
+    _zero_launch_counts()
     states, ts = env.reset(trandom.PRNGKey(SEED, device))
     engine.reset_cascade_stats()
     torch.cuda.synchronize()
@@ -1211,7 +1216,7 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
         scores = torch.rand(mask.shape, generator=gen, device=device)
         actions = torch.where(mask, scores, -1.0).argmax(-1)
         check(bool(mask.gather(1, actions[:, None]).all()), f"{tag} step {t}: ineffective action")
-        before = {n: m.launches for n, m in modules.items()}
+        before = _launch_counts()
         t0 = time.perf_counter()
         with count_syncs() if host_syncs else contextlib.nullcontext([]) as caught:
             states, ts = env.step(states, actions)
@@ -1219,7 +1224,7 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         syncs.append(_syncs(caught))
         for n in required:
-            check(modules[n].launches > before[n], f"{tag} step {t}: kernel {n} was not launched")
+            check(cuda_build.launches[n] > before[n], f"{tag} step {t}: kernel {n} was not launched")
         check(bool((ts.reward > 0).all()), f"{tag} step {t}: an effective move scored 0")
         truncated += int(ts.info.truncated.sum())
         done = int(ts.done.sum())
@@ -1228,7 +1233,7 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
             reset_steps.append(t)
         trips += int(ts.info.cascade_trips.sum())
         combs += int(ts.info.is_combination_match.sum())
-    launches = {n: m.launches for n, m in modules.items()}
+    launches = _launch_counts()
     print(f"{tag} launches a step: "
           f"{', '.join(f'{n} {c / MAIN_STEPS:.3f}' for n, c in launches.items())}")
     board_steps = MAIN_BATCH * MAIN_STEPS
@@ -1270,7 +1275,6 @@ def drive(cfg, device, smi, tag, required, host_syncs=False):
 def main_paths(device, smi):
     """Phases 4-8, the port's main paths on the card.  Returns each
     kernel's launches over the batched drives (phases 5-7)."""
-    from tile_match_tpu_torch.ops import cascade, cascade_sp, combination, mask_sp
     from tile_match_tpu_torch.tools.parity_check import replay_fixture
 
     # 4. the recorded JAX rollouts, on the card
@@ -1279,23 +1283,22 @@ def main_paths(device, smi):
         print(f"phase 4 ok: replayed {n} steps of {os.path.basename(path)} bit for bit")
 
     # 5-7. the batched main paths; each kernel's launches summed over them
-    launches = {name: 0 for name in _kernel_modules()}
+    launches = dict.fromkeys(cuda_build.KERNELS, 0)
     for tag, specials, required in MAIN_PATHS.values():
         run = drive(_config(10, 10, 4, 30, specials), device, smi, tag, required)
         for name, n in run["launches"].items():
             launches[name] += n
 
     # 8. the Gym entry point: its two engines, one board at a time
-    for m in (cascade, cascade_sp, mask_sp, combination):
-        m.launches = 0
+    gym_kernels = ("fused_cascade", "cascade_sp_chunk", "settled_mask_sp", "combination_trip")
+    _zero_launch_counts()
     golden_ms = replay_golden(device)
-    check(cascade.launches + cascade_sp.launches + mask_sp.launches + combination.launches == 0,
+    check(sum(cuda_build.launches[n] for n in gym_kernels) == 0,
           "phase 8: the numpy-parity engine launched a kernel")
     print(f"phase 8 ok: replayed {len(golden_ms)} steps of golden_episodes.json bit for bit "
           f"through ParityEngine: {sum(golden_ms) / len(golden_ms):.1f} ms/step ({smi})")
     gym_ms = replay_gym(device)
-    gym_launches = {"fused_cascade": cascade.launches, "cascade_sp_chunk": cascade_sp.launches,
-                    "settled_mask_sp": mask_sp.launches, "combination_trip": combination.launches}
+    gym_launches = {n: cuda_build.launches[n] for n in gym_kernels}
     check(all(n > 0 for n in gym_launches.values()),
           f"phase 8: the threefry episodes did not launch every kernel: {gym_launches}")
     for (mode, name), ms in gym_ms.items():
@@ -1403,29 +1406,13 @@ def _syncs(caught) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def _kernel_modules():
-    """The kernel wrappers' modules by kernel name: those the imported
-    package has (``tools/torch_step_times.py`` drives an earlier checkout's
-    package, which lacks the later kernels)."""
-    import importlib
-    import importlib.util
-
-    names = {name: f"tile_match_tpu_torch.ops.{mod}" for name, (mod, _, _) in KERNELS.items()}
-    names["threefry_words"] = "tile_match_tpu_torch.random"
-    names["line_test"] = "tile_match_tpu_torch.ops.lines"
-    mods = {name: importlib.import_module(m) for name, m in names.items()
-            if importlib.util.find_spec(m) is not None}
-    return {name: m for name, m in mods.items() if hasattr(m, "launches")}
-
-
 def _launch_counts():
-    return {name: m.launches for name, m in _kernel_modules().items()}
+    return dict(cuda_build.launches)
 
 
 def _zero_launch_counts():
     """Set every kernel's count to 0: a path's run starts from here."""
-    for m in _kernel_modules().values():
-        m.launches = 0
+    cuda_build.launches.update(dict.fromkeys(cuda_build.launches, 0))
 
 
 def _dqn_cfg(specials=(0, 0, 0, 0)):
@@ -1831,8 +1818,8 @@ def sharded_run(cfg, mesh, batch, steps, seed, tag, required=()):
     boards["reward"] = gather_boards(rew, mesh).cpu().numpy()
     return {
         "board_steps_per_s": local * steps / sum(step_s),
-        "launches_per_step": {n: sum(c[n] for c in per_step) / steps for n in KERNELS},
-        "launches": {n: end[n] - start[n] for n in KERNELS},  # the reset's too
+        "launches_per_step": {n: sum(c[n] for c in per_step) / steps for n in start},
+        "launches": {n: end[n] - start[n] for n in start},  # the reset's too
         "stats": {k: v.cpu().numpy() for k, v in stats.items()},
         "boards": boards,
     }
@@ -2067,13 +2054,13 @@ def check_debug(device) -> dict:
                   torch.tensor([[3, 4]]), torch.zeros(1, dtype=torch.int32))
         messages = []
         for dev in (torch.device("cpu"), device):
-            before = trip_sp.launches
+            before = cuda_build.launches["specials_trip"]
             try:
                 trip_sp.specials_trip(cfg, *(t.to(dev) for t in inputs))
                 messages.append("")
             except RuntimeError as e:
                 messages.append(str(e))
-        check(device.type != "cuda" or trip_sp.launches == before + 1,
+        check(device.type != "cuda" or cuda_build.launches["specials_trip"] == before + 1,
               f"debug_checks {cap}: K4 did not launch")
         check(messages[0] != "" and messages[1] == messages[0],
               f"debug_checks {cap}: K4 raised {messages[1]!r}, the plain trip {messages[0]!r}")
@@ -2086,13 +2073,13 @@ def check_debug(device) -> dict:
         cfg = dataclasses.replace(_config(8, 8, 3, 30, ALL_SPECIALS), debug_checks=True, **kw)
         messages = []
         for dev in (torch.device("cpu"), device):
-            before = combination.launches
+            before = cuda_build.launches["combination_trip"]
             try:
                 combination.combination_trip(cfg, *(t.to(dev) for t in inputs))
                 messages.append("")
             except RuntimeError as e:
                 messages.append(str(e))
-        check(device.type != "cuda" or combination.launches == before + 1,
+        check(device.type != "cuda" or cuda_build.launches["combination_trip"] == before + 1,
               f"debug_checks {kw}: K5 did not launch")
         check(messages[0] != "" and messages[1] == messages[0],
               f"debug_checks {kw}: K5 raised {messages[1]!r}, the plain branch {messages[0]!r}")
@@ -2332,12 +2319,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"phase 1 ok: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from tile_match_tpu_torch import cuda_build
-
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = [(src, cuda_build.shape_of(R, C)) for src, shapes in LIBRARY_SHAPES.items()
-            for R, C in shapes] + [("threefry_words", None), ("line_test", None)]
+            for R, C in shapes]
+    libs += [(k.source, None) for k in cuda_build.KERNELS.values()
+             if k.source not in LIBRARY_SHAPES]
     cuda_build.build_all(libs)
     stems = [src if shape is None else f"{src}-{shape[0]}x{shape[1]}" for src, shape in libs]
     for lib in libs:
@@ -2347,14 +2334,13 @@ def main() -> int:
         log = cuda_build.build_logs.get(stem)
         ptxas = cuda_build.ptxas_summary(log) if log else "library up to date, not rebuilt"
         print(f"phase 2: {stem}: ptxas [board shape, registers, spill stores, spill loads] {ptxas}")
-    for name, (_, src, _) in KERNELS.items():
+    for name in REPLACES:  # the board kernels, K1-K5
         per_sm = {}
         for R, C in ((10, 10), (36, 36)):
-            fn = getattr(cuda_build.load(src, cuda_build.shape_of(R, C)), f"tmt_{name}_occupancy")
             # K4 and K5: and 6 colours
             args = (R, C, 6) if name in ("specials_trip", "combination_trip") else (R, C)
-            fn.argtypes = [ctypes.c_int] * len(args)
-            fn.restype = ctypes.c_int
+            lib = cuda_build.library(name, device, (R, C))
+            fn = cuda_build.c_function(lib, f"tmt_{name}_occupancy", [ctypes.c_int] * len(args))
             per_sm[f"{R}x{C}"] = fn(*args)
         print(f"phase 2: {name}: boards in flight per SM {per_sm} "
               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
@@ -2390,30 +2376,14 @@ def main() -> int:
         {
             "name": name,
             "route": "cuda",
-            "source": f"tile_match_tpu_torch/csrc/{src}.cu",
-            "replaces": replaces,
+            "source": f"tile_match_tpu_torch/csrc/{kernel.source}.cu",
+            "replaces": REPLACES.get(name),
             "launches": launches[name],
             **rec[name],
             "library_ms": None,
         }
-        for name, (_, src, replaces) in KERNELS.items()
-    ] + [{
-        "name": "threefry_words",
-        "route": "cuda",
-        "source": "tile_match_tpu_torch/csrc/threefry_words.cu",
-        "replaces": None,  # jax.random's threefry is XLA's, no Pallas kernel
-        "launches": launches["threefry_words"],
-        **rec["threefry_words"],
-        "library_ms": None,
-    }, {
-        "name": "line_test",
-        "route": "cuda",
-        "source": "tile_match_tpu_torch/csrc/line_test.cu",
-        "replaces": None,  # the JAX package's line test is XLA's, no Pallas kernel
-        "launches": launches["line_test"],
-        **rec["line_test"],
-        "library_ms": None,
-    }]}))
+        for name, kernel in cuda_build.KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -12,6 +12,7 @@ import torch
 
 from tile_match_tpu.config import EnvConfig as JaxConfig
 from tile_match_tpu.ops import pallas_cascade as jpc
+from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.ops import cascade as tcas
 
@@ -85,9 +86,9 @@ def test_line_free_is_identity():
 
 def test_cpu_tensors_take_the_plain_version():
     (_, _), (tc, tk) = _boards(2, 8)
-    before = tcas.launches
+    before = cuda_build.launches["fused_cascade"]
     got = tcas.fused_cascade(TCFG, tc, tk)
-    assert tcas.launches == before
+    assert cuda_build.launches["fused_cascade"] == before
     _assert_equal(got, [w.numpy() for w in tcas.cascade_reference(TCFG, tc, tk)], "cpu dispatch")
 
 

@@ -11,8 +11,9 @@ the key included, with every special set ``EnvConfig.create`` accepts, on
 boards with sprinkled specials whose swap cells are painted with all 25
 ordered pairs of kinds; boards whose flag is clear come back unchanged with
 zero counts.  ``csrc/combination.cu`` compiled as plain C++
-(``-DTMT_HOST_BUILD``, as ``test_torch_kernels_host.py`` builds K1-K3)
-equals the plain branch on the same boards, in fixed-shape libraries and at
+(``-DTMT_HOST_BUILD``, as ``test_torch_kernels_host.py`` builds K1-K3) and
+run by the wrapper itself through the host seam (the boards updated in
+place, as on the card) equals the plain branch on the same boards, in fixed-shape libraries and at
 36x36 (the library of any shape), with caps tight enough that each fires
 and raises the plain branch's ``debug_checks`` message, and on the
 recorded combination fixtures and painted boards whose chains are longer
@@ -42,13 +43,14 @@ import jax.numpy as jnp
 import torch
 
 from chip_smoke import combination_inputs
-from tests.test_torch_kernels_host import _host_build
 from tests.test_torch_specials import sprinkled
 from tests.test_torch_trip_sp import SET_IDS, SETS, SIZES, _cfgs, _kinds
+from tests.torch_port_helpers import host_build, host_kernels  # noqa: F401  (a fixture)
 from tile_match_tpu.ops.board_ops import apply_refill as j_refill
 from tile_match_tpu.ops.board_ops import draw_colour_grid as j_draw
 from tile_match_tpu.ops.board_ops import gravity as j_gravity
 from tile_match_tpu.ops.combination import combination_match as j_comb
+from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch import engine
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.ops import activate as tact
@@ -136,48 +138,46 @@ def test_plain_branch_matches_jax(i):
 # ---- K5's board program, built for the host -----------------------------------
 
 
-def _k5_fn(lib):
-    fn = lib.tmt_combination_trip_host
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    return _host_build(tmp_path_factory, "combination")
+    return host_build(tmp_path_factory, "combination")
 
 
-def run_k5(fn, cfg, colour, kind, keys, c1, c2, comb):
-    """K5's host build on numpy inputs: (the six outputs, cap bits, frames
-    live), torch tensors."""
+@pytest.fixture
+def host_k5(host_kernels):
+    """K5's wrapper on the host build of any board shape."""
+    host_kernels("combination_trip", shape=None)
+
+
+def run_k5(cfg, colour, kind, keys, c1, c2, comb):
+    """K5's wrapper on numpy inputs (copies of the boards, which it updates
+    in place), on the host build the seam points it at: (the six outputs,
+    cap bits, frames live), torch tensors; the caps and frames are those the
+    wrapper reads back with ``debug_checks`` on, recorded in place of its
+    raising."""
     colour, kind, keys, c1, c2, comb = _torch(colour, kind, keys, c1, c2, comb)
-    n, R, C = colour.shape
-    out = [torch.empty_like(colour), torch.empty_like(kind), torch.empty_like(keys)]
-    out += [torch.empty(n, dtype=torch.int32) for _ in range(2)]
-    ovf = torch.empty(n, dtype=torch.bool)
-    caps = torch.empty(n, dtype=torch.int32)
-    live = torch.empty(n, dtype=torch.int32)
-    err = fn(colour.data_ptr(), kind.data_ptr(), keys.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-             comb.data_ptr(), *(t.data_ptr() for t in out), ovf.data_ptr(), caps.data_ptr(),
-             live.data_ptr(), n, R, C, cfg.num_colours, cfg.stack_max, cfg.activation_steps_max)
-    assert err == 0
-    return (*out, ovf), caps, live
+    read = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(combination, "raise_caps", lambda cfg, caps, live: read.append((caps, live)))
+        got = combination.combination_trip(dataclasses.replace(cfg, debug_checks=True),
+                                           colour.clone(), kind.clone(), keys, c1, c2, comb)
+    ((caps, live),) = read
+    return got, caps, live
 
 
 @pytest.mark.parametrize("i", range(len(SETS)), ids=SET_IDS)
-def test_board_program_matches_plain(host_lib, i):
+def test_board_program_matches_plain(host_k5, i):
     _, tc = _set_cfgs(i)
     inputs = comb_inputs(tc, seed=200 + i)
-    got, caps, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    got, caps, _ = run_k5(tc, *inputs)
     _assert_equal(got, plain(tc, *inputs), SET_IDS[i])
     assert int(caps.sum()) == 0
 
 
-def test_unflagged_boards_come_back_unchanged(host_lib):
+def test_unflagged_boards_come_back_unchanged(host_k5):
     _, tc = _set_cfgs(len(SETS) - 1)
     colour, kind, keys, c1, c2, comb = comb_inputs(tc, seed=5)
-    got, caps, live = run_k5(_k5_fn(host_lib), tc, colour, kind, keys, c1, c2, np.zeros_like(comb))
+    got, caps, live = run_k5(tc, colour, kind, keys, c1, c2, np.zeros_like(comb))
     _assert_equal(got, _torch(colour, kind, keys, c1, c2, comb)[:3], "unflagged", NAMES[:3])
     for t in (*got[3:], caps, live):
         assert not t.any()
@@ -185,25 +185,26 @@ def test_unflagged_boards_come_back_unchanged(host_lib):
 
 @pytest.mark.parametrize("R,C,K,specials", [(10, 10, 4, ALL),
                                             (9, 7, 2, (("cookie",), ("vertical_laser",)))])
-def test_fixed_shape_library_matches_plain(tmp_path_factory, R, C, K, specials):
+def test_fixed_shape_library_matches_plain(host_kernels, R, C, K, specials):
     """The libraries of one board shape (geometry fixed at compile time), as
     the card builds them for boards up to 32 by 32."""
-    fn = _k5_fn(_host_build(tmp_path_factory, "combination", (R, C)))
+    host_kernels("combination_trip", shape=(R, C))
     _, tc = _cfgs(R, C, K, specials)
     inputs = comb_inputs(tc, seed=R * C)
-    got, _, _ = run_k5(fn, tc, *inputs)
+    got, _, _ = run_k5(tc, *inputs)
     _assert_equal(got, plain(tc, *inputs), f"{R}x{C}")
     narrow = tuple(np.ascontiguousarray(a[:, :, :-1]) if a.ndim == 3 else a for a in inputs)
-    with pytest.raises(AssertionError):  # another shape is refused
-        run_k5(fn, tc, *narrow)
+    # another shape is refused (by the plan, the first call into the library)
+    with pytest.raises(RuntimeError, match=f"no launch plan for {B} {R}x{C - 1} boards: .* -1"):
+        run_k5(_cfgs(R, C - 1, K, specials)[1], *narrow)
 
 
-def test_board_program_36x36(host_lib):
+def test_board_program_36x36(host_k5):
     """Above 32x32: the library whose geometry is read at run time (a
     laser's 36 cells take two votes on the card)."""
     _, tc = _cfgs(36, 36, 6, ALL)
     inputs = comb_inputs(tc, seed=36, n=50)
-    got, _, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    got, _, _ = run_k5(tc, *inputs)
     _assert_equal(got, plain(tc, *inputs), "36x36")
     assert int(got[4].sum()) > 0
 
@@ -228,12 +229,12 @@ def _k5_error(tc, caps, live):
                                     (dict(max_activation_steps=3), combination.CAP_STEPS),
                                     (dict(max_stack=2, max_activation_steps=3), None)],
                          ids=["stack2", "steps3", "stack2-steps3"])
-def test_caps_fire_as_in_plain(host_lib, kw, bit):
+def test_caps_fire_as_in_plain(host_k5, kw, bit):
     """Tight caps: the outputs and ``ovf`` equal the plain branch's where
     caps fire, and the first cap's message is the plain branch's."""
     _, tc = _cfgs(8, 8, 3, ALL, **kw)
     inputs = comb_inputs(tc, seed=8)
-    got, caps, live = run_k5(_k5_fn(host_lib), tc, *inputs)
+    got, caps, live = run_k5(tc, *inputs)
     _assert_equal(got, plain(tc, *inputs), str(kw))
     message = _plain_error(tc, inputs)
     assert message and _k5_error(tc, caps, live) == message
@@ -244,14 +245,14 @@ def test_caps_fire_as_in_plain(host_lib, kw, bit):
 
 
 @pytest.mark.parametrize("fx", FIX["combination"], ids=[f["name"] for f in FIX["combination"]])
-def test_combination_fixture(host_lib, fx):
+def test_combination_fixture(host_k5, fx):
     """The recorded combination matches of the original game: K5 equals the
     plain branch, and counts the recorded activations."""
     cfg = EnvConfig.create(fx["rows"], fx["cols"], fx["colours"], 10)
     colour, kind = (np.asarray(ch, np.int32)[None] for ch in fx["before"])
     inputs = (colour, kind, np.array([[7, 9]], np.uint32), np.array([fx["coord1"]], np.int32),
               np.array([fx["coord2"]], np.int32), np.ones(1, bool))
-    got, _, _ = run_k5(_k5_fn(host_lib), cfg, *inputs)
+    got, _, _ = run_k5(cfg, *inputs)
     _assert_equal(got, plain(cfg, *inputs), fx["name"])
     assert int(got[4][0]) == fx["num_specials_activated"], fx["name"]
 
@@ -259,9 +260,9 @@ def test_combination_fixture(host_lib, fx):
 def test_wrapper_runs_the_plain_branch_on_the_cpu():
     _, tc = _set_cfgs(len(SETS) - 1)
     t = _torch(*comb_inputs(tc, seed=3, n=40))
-    before = combination.launches
+    before = cuda_build.launches["combination_trip"]
     _assert_equal(combination.combination_trip(tc, *t), engine.combination_branch(tc, *t), "cpu")
-    assert combination.launches == before
+    assert cuda_build.launches["combination_trip"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         combination.combination_trip(tc, *(x.to("meta") for x in t))
 
@@ -404,7 +405,7 @@ def test_bits_machine_fixed_shape_and_wide_boards(tmp_path_factory, host_lib):
     geometry fixed at compile time) and at 36x36 and 40x60 in the library
     of any shape (planes of 41 and 75 words: two and four words a lane on
     the card), every frame op in turn."""
-    fixed = _bits_fn(_host_build(tmp_path_factory, "combination", (10, 10)))
+    fixed = _bits_fn(host_build(tmp_path_factory, "combination", (10, 10)))
     for fn, (R, C, K, n) in ((fixed, (10, 10, 4, B)), (_bits_fn(host_lib), (36, 36, 6, 4)),
                              (_bits_fn(host_lib), (40, 60, 5, 2))):
         _, tc = _cfgs(R, C, K, ALL)
@@ -492,7 +493,7 @@ def _painted_long_chain(partner):
     return colour, kind
 
 
-def test_longest_chain_painted_board(host_lib):
+def test_longest_chain_painted_board(host_k5):
     """Painted boards whose chains are longer than the longest of the main
     path's step-20 launch (one for each partner special): K5's host build
     equals the plain branch and JAX's combination round on them."""
@@ -506,7 +507,7 @@ def test_longest_chain_painted_board(host_lib):
     _, steps = chain_lengths(tc, _torch(*inputs))
     assert int(steps.min()) > LONGEST_MAIN_PATH_CHAIN
     want = plain(tc, *inputs)
-    got, caps, _ = run_k5(_k5_fn(host_lib), tc, *inputs)
+    got, caps, _ = run_k5(tc, *inputs)
     _assert_equal(got, want, "painted long chains")
     assert int(caps.sum()) == 0
     for name, g, w in zip(NAMES, want, jax_branch(jc, *inputs)):

@@ -42,9 +42,8 @@ def _libraries():
     if torch.cuda.is_available():
         shapes = {(R, C) for R, C, *_ in K1_SHAPES + SP_SHAPES + NB_CASES + K3_SHAPES + K4_CASES
                   + K5_CASES + LINE_SHAPES}
-        cuda_build.build_all([(src, cuda_build.shape_of(R, C))
-                              for src in ("cascade", "cascade_sp", "mask_sp", "trip_sp", "combination")
-                              for R, C in shapes] + ["threefry_words", "line_test"])
+        cuda_build.build_all([(kernel.source, cuda_build.shape_of(R, C))
+                              for kernel in cuda_build.KERNELS.values() for R, C in shapes])
 
 
 def _no_specials(R, C, K, moves=30, **kw):
@@ -73,10 +72,10 @@ def test_kernel_matches_plain_version(cuda_device, R, C, K, B, max_cascades):
     keys = torch.as_tensor(
         rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint64).astype(np.int64), device=cuda_device
     )
-    before = tcas.launches
+    before = cuda_build.launches["fused_cascade"]
     got = tcas.fused_cascade(cfg, colour, keys)
     torch.cuda.synchronize()
-    assert tcas.launches == before + 1
+    assert cuda_build.launches["fused_cascade"] == before + 1
     want = tcas.cascade_reference(cfg, colour, keys)
     for g, w, name in zip(got, want, NAMES):
         assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -143,10 +142,10 @@ SP_SHAPES = [(10, 10, 4, 2048, 64), (6, 6, 3, 130, 64), (8, 8, 4, 300, 2), (20, 
 def test_cascade_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit):
     cfg = _specials(R, C, K)
     inputs = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=R * B + limit, device=cuda_device)
-    before = tsp.launches
+    before = cuda_build.launches["cascade_sp_chunk"]
     got = tsp.cascade_sp_chunk(cfg, *inputs, limit=limit)
     torch.cuda.synchronize()
-    assert tsp.launches == before + 1
+    assert cuda_build.launches["cascade_sp_chunk"] == before + 1
     want = tsp.cascade_sp_reference(cfg, *inputs, limit=limit)
     for g, w, name in zip(got, want, SP_NAMES):
         assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -195,10 +194,10 @@ def test_gym_engines_replay_on_card(cuda_device):
 def test_settled_mask_sp_kernel_matches_plain_version(cuda_device, R, C, K, B, limit):
     cfg = _specials(R, C, K)
     colour, kind = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=B, device=cuda_device)[:2]
-    before = tmask.launches
+    before = cuda_build.launches["settled_mask_sp"]
     got = tmask.settled_mask_sp(cfg, colour, kind)
     torch.cuda.synchronize()
-    assert tmask.launches == before + 1
+    assert cuda_build.launches["settled_mask_sp"] == before + 1
     assert torch.equal(got, effective_mask_settled(cfg, colour, kind))
 
 
@@ -216,10 +215,10 @@ def test_settled_mask_kernel_with_and_without_specials(cuda_device, R, C, K, B, 
     kw = {} if any_special else {"colourless_specials": (), "colour_specials": ()}
     cfg = _specials(R, C, K, **kw)
     colour, kind = _chip_smoke().sprinkled_inputs(R, C, K, B, seed=R * C + B, device=cuda_device)[:2]
-    before = tmask.launches
+    before = cuda_build.launches["settled_mask_sp"]
     got = tmask.settled_mask_sp(cfg, colour, kind)
     torch.cuda.synchronize()
-    assert tmask.launches == before + 1
+    assert cuda_build.launches["settled_mask_sp"] == before + 1
     assert torch.equal(got, effective_mask_settled(cfg, colour, kind))
 
 
@@ -235,10 +234,10 @@ def test_no_specials_env_launches_the_settled_mask_kernel(cuda_device):
         states, ts = env.reset(key)
         for _ in range(6):  # crosses the reset after move 5
             key, ka = trandom.split(key).unbind(0)
-            before = tmask.launches
+            before = cuda_build.launches["settled_mask_sp"]
             states, ts = env.step(states, random_effective(ka, ts))
             torch.cuda.synchronize()
-            assert tmask.launches > before
+            assert cuda_build.launches["settled_mask_sp"] > before
 
 
 @pytest.mark.cuda
@@ -357,10 +356,10 @@ def test_specials_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, cap
     if R * C <= 1296:
         sets.append(smoke.frozen_trip_inputs(cfg, B, R * B, cuda_device))
     for inputs in sets:
-        before = ttrip.launches
+        before = cuda_build.launches["specials_trip"]
         got = ttrip.specials_trip(cfg, *inputs)
         torch.cuda.synchronize()
-        assert ttrip.launches == before + 1
+        assert cuda_build.launches["specials_trip"] == before + 1
         want = engine.specials_cascade_trip(cfg, *inputs)
         for g, w, name in zip(got, want, TRIP_NAMES):
             assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -409,11 +408,11 @@ def test_specials_cascade_runs_every_full_trip_on_k4(cuda_device):
     smoke = _chip_smoke()
     cfg = _specials(10, 10, 4)
     colour, kind, keys = smoke.sprinkled_inputs(10, 10, 4, 512, seed=9, device=cuda_device)[:3]
-    before = ttrip.launches
+    before = cuda_build.launches["specials_trip"]
     with smoke.plain_trip_refused():
         got = engine.fused_specials_cascade(cfg, colour, kind, keys)
     torch.cuda.synchronize()
-    assert ttrip.launches > before
+    assert cuda_build.launches["specials_trip"] > before
     want = engine.fused_specials_cascade(cfg, colour.cpu(), kind.cpu(), keys.cpu())
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -433,10 +432,10 @@ def test_combination_trip_kernel_matches_plain_version(cuda_device, R, C, K, B, 
     smoke = _chip_smoke()
     cfg = dataclasses.replace(_specials(R, C, K), **caps)
     inputs = smoke.combination_inputs(R, C, K, B, seed=R + B, device=cuda_device)
-    before = tcomb.launches
+    before = cuda_build.launches["combination_trip"]
     got = tcomb.combination_trip(cfg, *(t.clone() for t in inputs))  # updated in place
     torch.cuda.synchronize()
-    assert tcomb.launches == before + 1
+    assert cuda_build.launches["combination_trip"] == before + 1
     want = engine.combination_branch(cfg, *inputs)
     for g, w, name in zip(got, want, COMB_NAMES):
         assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -509,7 +508,7 @@ def test_specials_env_runs_every_combination_on_k5(cuda_device):
         env = BatchedTileMatchEnv(cfg, 512, device=dev)
         states, ts = env.reset(trandom.PRNGKey(3, dev))
         gen = torch.Generator().manual_seed(4)  # the actions drawn on the CPU for both
-        before = tcomb.launches
+        before = cuda_build.launches["combination_trip"]
         with smoke.plain_combination_refused():
             for _ in range(10):
                 mask = ts.info.effective_actions.cpu()
@@ -517,7 +516,7 @@ def test_specials_env_runs_every_combination_on_k5(cuda_device):
                 states, ts = env.step(states, actions.to(dev))
         outs.append((states.colour.cpu(), states.kind.cpu(), states.key.cpu(), ts.reward.cpu()))
         if dev.type == "cuda":
-            assert tcomb.launches == before + 10
+            assert cuda_build.launches["combination_trip"] == before + 10
     for g, w in zip(*outs):
         assert torch.equal(g, w)
 
@@ -554,10 +553,10 @@ def test_threefry_kernel_matches_plain_version(cuda_device, name, call, n_launch
     """random.py on the card (the threefry kernel) equals its plain int64
     version on the CPU word for word, one launch a split, fold_in,
     random_bits, uniform or randint."""
-    before = trandom.launches
+    before = cuda_build.launches["threefry_words"]
     got = call(cuda_device)
     torch.cuda.synchronize()
-    assert trandom.launches == before + n_launches
+    assert cuda_build.launches["threefry_words"] == before + n_launches
     want = call(torch.device("cpu"))
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
@@ -570,10 +569,10 @@ def test_threefry_categorical_on_card_uses_the_kernel_words(cuda_device):
     key = _tf_keys(2, 13, cuda_device)[1]
     logits = torch.where(torch.rand(16384, 180, generator=torch.Generator().manual_seed(0)) < 0.3,
                          0.0, -torch.inf).to(cuda_device)
-    before = trandom.launches
+    before = cuda_build.launches["threefry_words"]
     got = trandom.categorical(key, logits, offset=180)
     torch.cuda.synchronize()
-    assert trandom.launches == before + 1
+    assert cuda_build.launches["threefry_words"] == before + 1
     u = trandom.uniform(key.cpu(), logits.shape, np.finfo(np.float32).tiny, 1.0, 180).to(cuda_device)
     assert torch.equal(got, torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1))
 
@@ -605,12 +604,13 @@ def test_threefry_plain_version_on_cpu_and_other_devices_refused(monkeypatch):
     """On CPU tensors random.py runs its plain version and never loads the
     kernel's library; a device that is neither CPU nor CUDA raises."""
 
-    def refused():
+    def refused(*args):
         raise AssertionError("the threefry library was loaded for CPU tensors")
 
-    monkeypatch.setattr(trandom, "_lib", refused)
+    monkeypatch.setattr(cuda_build, "load", refused)
+    monkeypatch.setattr(cuda_build, "library", refused)
     keys = torch.tensor([[0, 42], [7, 0xFFFFFFFF]], dtype=torch.int64)
-    before = trandom.launches
+    before = cuda_build.launches["threefry_words"]
     trandom.split(keys, 3)
     trandom.fold_in(keys, torch.tensor([1, 2]))
     trandom.random_bits(keys, (5,))
@@ -619,7 +619,7 @@ def test_threefry_plain_version_on_cpu_and_other_devices_refused(monkeypatch):
     trandom.uniform(keys, (3,))
     trandom.categorical(keys[0], torch.zeros(2, 6))
     trandom.permutation(keys, 9)
-    assert trandom.launches == before
+    assert cuda_build.launches["threefry_words"] == before
     meta = torch.zeros(2, dtype=torch.int64, device="meta")
     for call in (lambda: trandom.split(meta), lambda: trandom.fold_in(meta, 1),
                  lambda: trandom.random_bits(meta, (3,)), lambda: trandom.randint(meta, (3,), 0, 4),
@@ -709,10 +709,10 @@ def test_line_test_kernel_matches_plain_version(cuda_device, R, C, K, kind):
     want_member, want_any = plain_line_test(colour)
     assert 0 < int(want_any.sum()) or kind == "sparse"
     x = colour.to(cuda_device)
-    before = tl.launches
+    before = cuda_build.launches["line_test"]
     member, any_ = tl.run_member_mask(None, x), tl.has_any_line(None, x)
     torch.cuda.synchronize()
-    assert tl.launches == before + 2
+    assert cuda_build.launches["line_test"] == before + 2
     assert torch.equal(member.cpu(), want_member)
     assert torch.equal(any_.cpu(), want_any)
 
@@ -734,9 +734,9 @@ def test_line_test_one_board_empty_batch_and_strided_input(cuda_device):
         assert torch.equal(tl.run_member_mask(None, x).cpu(), want_member)
         assert torch.equal(tl.has_any_line(None, x).cpu(), want_any)
     empty = torch.zeros(0, 10, 10, dtype=torch.int32, device=cuda_device)
-    before = tl.launches
+    before = cuda_build.launches["line_test"]
     member, any_ = tl.run_member_mask(None, empty), tl.has_any_line(None, empty)
-    assert tl.launches == before
+    assert cuda_build.launches["line_test"] == before
     assert member.shape == (0, 10, 10) and member.dtype == torch.bool
     assert any_.shape == (0,) and any_.dtype == torch.bool
     with pytest.raises(ValueError):

@@ -5,11 +5,15 @@ PyTorch versions exactly.
 each kernel as a sequence of per-cell phases on the executors of
 ``csrc/block.cuh``; compiled as plain C++ with ``-DTMT_HOST_BUILD`` the
 same phases run as loops over the cells of one board after another, with
-the bit helpers on the compiler's builtins.  This holds the kernels'
-arithmetic against ``cascade_reference``, ``cascade_sp_reference`` and
+the bit helpers on the compiler's builtins.  The wrappers themselves run
+them, through the host seam (``tests/torch_port_helpers.py``): their
+checks, allocations and argument marshalling, then each entry point's
+``_host`` twin in place of the launch.  This holds the kernels' arithmetic
+against ``cascade_reference``, ``cascade_sp_reference`` and
 ``effective_mask_settled`` without a card, at boards above 1024 cells and
 on painted boards whose runs touch the edges of rows and columns that
-straddle the 32-bit words of the cell masks;
+straddle the 32-bit words of the cell masks, and the table of entry
+points (``cuda_build.KERNELS``) against the sources;
 ``test_torch_kernels_cuda.py`` holds the kernels themselves on the card.
 Needs ``g++``; skips without it.
 
@@ -17,9 +21,7 @@ Needs ``g++``; skips without it.
 """
 
 import ctypes
-import shutil
-import subprocess
-import types
+import re
 
 import numpy as np
 import pytest
@@ -29,13 +31,16 @@ from chip_smoke import corner_boards
 from tests.test_torch_kernels_cuda import (LINE_CASES, LINE_KINDS, line_boards, line_case_ids,
                                            plain_line_test)
 from tests.test_torch_specials import sprinkled
-from tile_match_tpu_torch import cuda_build
+from tests.torch_port_helpers import host_build, host_kernels  # noqa: F401  (a fixture)
+from tile_match_tpu_torch import bench, cuda_build
 from tile_match_tpu_torch import random as trandom
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.cuda_build import CSRC
-from tile_match_tpu_torch.ops.cascade import cascade_reference
-from tile_match_tpu_torch.ops.cascade_sp import cascade_sp_reference
+from tile_match_tpu_torch.ops.cascade import cascade_reference, fused_cascade
+from tile_match_tpu_torch.ops.cascade_sp import cascade_sp_chunk, cascade_sp_reference
 from tile_match_tpu_torch.ops.effective import effective_mask_settled
+from tile_match_tpu_torch.ops.lines import has_any_line, run_member_mask
+from tile_match_tpu_torch.ops.mask_sp import settled_mask_sp
 
 torch.set_num_threads(1)
 
@@ -49,56 +54,6 @@ COOKIE = (("cookie",), ())
 COOKIE_V = (("cookie",), ("vertical_laser",))
 NAMES = ["colour", "kind", "trips", "elim", "new", "act", "frozen", "active", "reasons"]
 K1_NAMES = ["colour", "elim", "trips", "truncated", "mask"]
-
-
-def _host_build(tmp_path_factory, name, shape=None):
-    """The board programs of ``csrc/<name>.cu`` built for the host: with
-    ``shape`` = (R, C) the library of that board shape (its geometry fixed
-    at compile time, as the card's libraries of boards up to 32 by 32),
-    else the one whose geometry is read at run time (any board)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels' board programs for the host")
-    defines = [] if shape is None else [f"-DTMT_ROWS={shape[0]}", f"-DTMT_COLS={shape[1]}"]
-    so = tmp_path_factory.mktemp("host_build") / f"lib{name}_host.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-x", "c++", "-DTMT_HOST_BUILD", *defines, "-shared", "-fPIC",
-         "-I", str(CSRC), "-o", str(so), str(CSRC / f"{name}.cu")],
-        check=True, capture_output=True, text=True,
-    )
-    return ctypes.CDLL(str(so))
-
-
-def _k1_fn(lib):
-    k1 = lib.tmt_fused_cascade_host
-    k1.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-    k1.restype = ctypes.c_int
-    return k1
-
-
-def _k2_fn(lib):
-    k2 = lib.tmt_cascade_sp_host
-    k2.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
-    k2.restype = ctypes.c_int
-    return k2
-
-
-@pytest.fixture(scope="module")
-def host_k1(tmp_path_factory):
-    return _k1_fn(_host_build(tmp_path_factory, "cascade"))
-
-
-def _k3_fn(lib):
-    k3 = lib.tmt_settled_mask_sp_host
-    k3.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    k3.restype = ctypes.c_int
-    return k3
-
-
-@pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    libs = {name: _host_build(tmp_path_factory, name) for name in ("cascade_sp", "mask_sp")}
-    return _k2_fn(libs["cascade_sp"]), _k3_fn(libs["mask_sp"])
 
 
 def _inputs(cfg, B, seed):
@@ -121,41 +76,33 @@ def _inputs(cfg, B, seed):
      (5, 5, 3, ALL, 200, 64), (10, 10, 4, NO_BOMB, 200, 64), (6, 6, 3, LASERS, 200, 64),
      (8, 8, 4, COOKIE, 200, 64), (20, 20, 6, NO_BOMB, 40, 64), (7, 9, 3, COOKIE_V, 150, 2)],
 )
-def test_cascade_sp_board_program_matches_plain(host_libs, R, C, K, specials, B, limit):
-    k2, k3 = host_libs
+def test_cascade_sp_board_program_matches_plain(host_kernels, R, C, K, specials, B, limit):
+    host_kernels("cascade_sp_chunk", "settled_mask_sp", shape=None)
     cfg = EnvConfig.create(R, C, K, 30, colourless_specials=specials[0], colour_specials=specials[1])
     inputs = _inputs(cfg, B, seed=R * C + limit)
-    colour, kind, keys, trips, elim, frozen = inputs
-    got = [torch.empty_like(colour), torch.empty_like(kind)]
-    got += [torch.empty(B, dtype=torch.int32) for _ in range(5)]
-    got += [torch.empty(B, dtype=torch.bool), torch.empty(B, dtype=torch.int32)]
-    err = k2(*(t.data_ptr() for t in inputs), *(t.data_ptr() for t in got),
-             B, R, C, K, cfg.max_cascades, limit,
-             int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb))
-    assert err == 0
+    frozen = inputs[5]
+    before = dict(cuda_build.launches)
+    got = cascade_sp_chunk(cfg, *inputs, limit)
     want = cascade_sp_reference(cfg, *inputs, limit=limit)
     for name, g, w in zip(NAMES, got, want):
         assert torch.equal(g, w), name
     assert int(want[6].sum()) > int(frozen.sum())  # some boards froze here
 
-    mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
-    assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), B, R, C, 1) == 0
+    mask = settled_mask_sp(cfg, got[0], got[1])
     assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
+    assert {n: c - before[n] for n, c in cuda_build.launches.items() if c != before[n]} == {
+        "cascade_sp_chunk": 1, "settled_mask_sp": 1}
 
 
-def test_cascade_sp_no_bomb_corners_match_plain(host_libs):
+def test_cascade_sp_no_bomb_corners_match_plain(host_kernels):
     """Two cookie lines crossing in both tails: the corner survives."""
-    k2, _ = host_libs
+    host_kernels("cascade_sp_chunk", shape=None)
     cfg = EnvConfig.create(8, 8, 4, 30, colourless_specials=NO_BOMB[0], colour_specials=NO_BOMB[1])
     colour, kind = (torch.from_numpy(a) for a in corner_boards(64, seed=1))
     keys = torch.arange(128, dtype=torch.int64).reshape(64, 2)
     z = torch.zeros(64, dtype=torch.int32)
     inputs = (colour, kind, keys, z, z, z)
-    got = [torch.empty_like(colour), torch.empty_like(kind)]
-    got += [torch.empty(64, dtype=torch.int32) for _ in range(5)]
-    got += [torch.empty(64, dtype=torch.bool), torch.empty(64, dtype=torch.int32)]
-    assert k2(*(t.data_ptr() for t in inputs), *(t.data_ptr() for t in got),
-              64, 8, 8, 4, cfg.max_cascades, 1, 1, 1, 1, 0) == 0
+    got = cascade_sp_chunk(cfg, *inputs, 1)
     want = cascade_sp_reference(cfg, *inputs, limit=1)
     for name, g, w in zip(NAMES, got, want):
         assert torch.equal(g, w), name
@@ -191,30 +138,6 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     assert len({cuda_build.digest("threefry_words", shape) for shape in (None, (10, 10))}) == 1
 
 
-def _k1_run(k1, cfg, colour, keys):
-    B, R, C = colour.shape
-    got = [torch.empty_like(colour), torch.empty(B, dtype=torch.int32),
-           torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.bool),
-           torch.empty(B, cfg.num_actions, dtype=torch.bool)]
-    err = k1(colour.data_ptr(), keys.data_ptr(), *(t.data_ptr() for t in got),
-             B, R, C, cfg.num_colours, cfg.max_cascades)
-    assert err == 0
-    return got
-
-
-def _k2_run(k2, cfg, inputs, limit):
-    colour = inputs[0]
-    B, R, C = colour.shape
-    got = [torch.empty_like(colour), torch.empty_like(inputs[1])]
-    got += [torch.empty(B, dtype=torch.int32) for _ in range(5)]
-    got += [torch.empty(B, dtype=torch.bool), torch.empty(B, dtype=torch.int32)]
-    err = k2(*(t.data_ptr() for t in inputs), *(t.data_ptr() for t in got),
-             B, R, C, cfg.num_colours, cfg.max_cascades, limit,
-             int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb))
-    assert err == 0
-    return got
-
-
 def _k1_inputs(R, C, K, B, seed):
     rng = np.random.default_rng(seed)
     colour = torch.from_numpy(rng.integers(1, K + 1, size=(B, R, C)).astype(np.int32))
@@ -226,31 +149,33 @@ def _k1_inputs(R, C, K, B, seed):
                          [(5, 5, 3, 64, 64), (10, 10, 4, 64, 64), (20, 20, 6, 32, 64),
                           (7, 9, 4, 64, 2), (1, 8, 3, 16, 64), (8, 1, 3, 16, 64),
                           (36, 36, 6, 8, 64), (6, 32, 1, 4, 3), (32, 6, 1, 4, 3)])
-def test_cascade_board_program_matches_plain(host_k1, R, C, K, B, max_cascades):
+def test_cascade_board_program_matches_plain(host_kernels, R, C, K, B, max_cascades):
     """K1's board program, 36x36 (1,296 cells) above the old one-thread-per-cell cap;
     with one colour, every row and column one run of 32 cells at 6x32 and 32x6."""
+    host_kernels("fused_cascade", shape=None)
     cfg = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=(),
                            max_cascades=max_cascades)
     colour, keys = _k1_inputs(R, C, K, B, seed=R * C + B)
-    got = _k1_run(host_k1, cfg, colour, keys)
+    before = cuda_build.launches["fused_cascade"]
+    got = fused_cascade(cfg, colour, keys)
+    assert cuda_build.launches["fused_cascade"] == before + 1
     want = cascade_reference(cfg, colour, keys)
     for name, g, w in zip(K1_NAMES, got, want):
         assert torch.equal(g, w), name
 
 
-def test_cascade_sp_board_program_above_old_cap(host_libs):
+def test_cascade_sp_board_program_above_old_cap(host_kernels):
     """K2 with and without the bomb and K3 at 36x36x6 (1,296 cells)."""
-    k2, k3 = host_libs
+    host_kernels("cascade_sp_chunk", "settled_mask_sp", shape=None)
     for specials, limit in ((ALL, 64), (NO_BOMB, 64)):
         cfg = EnvConfig.create(36, 36, 6, 30, colourless_specials=specials[0],
                                colour_specials=specials[1])
         inputs = _inputs(cfg, 8, seed=36 + len(specials[1]))
-        got = _k2_run(k2, cfg, inputs, limit)
+        got = cascade_sp_chunk(cfg, *inputs, limit)
         want = cascade_sp_reference(cfg, *inputs, limit=limit)
         for name, g, w in zip(NAMES, got, want):
             assert torch.equal(g, w), (specials, name)
-        mask = torch.empty(8, cfg.num_actions, dtype=torch.bool)
-        assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), 8, 36, 36, 1) == 0
+        mask = settled_mask_sp(cfg, got[0], got[1])
         assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
 
 
@@ -296,15 +221,15 @@ EDGE_SHAPES = [(5, 33, 4), (34, 6, 4), (3, 40, 4), (40, 3, 4), (6, 32, 4), (32, 
 
 
 @pytest.mark.parametrize("R,C,K", EDGE_SHAPES)
-def test_painted_edges_match_plain(host_k1, host_libs, R, C, K):
+def test_painted_edges_match_plain(host_kernels, R, C, K):
     """Runs touching column 0, column C-1, row 0 and row R-1: K1, K2 with
     and without the bomb (lasers and bombs in the painted runs) and K3."""
     B = 48
-    k2, k3 = host_libs
+    host_kernels("fused_cascade", "cascade_sp_chunk", "settled_mask_sp", shape=None)
     colour, _ = painted_edges(R, C, B, seed=R * C)
     keys = torch.arange(2 * B, dtype=torch.int64).reshape(B, 2)
     cfg1 = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=())
-    for name, g, w in zip(K1_NAMES, _k1_run(host_k1, cfg1, colour, keys),
+    for name, g, w in zip(K1_NAMES, fused_cascade(cfg1, colour, keys),
                           cascade_reference(cfg1, colour, keys)):
         assert torch.equal(g, w), ("K1", name)
     colour, kind = painted_edges(R, C, B, seed=R * C + 1, specials=True)
@@ -313,13 +238,12 @@ def test_painted_edges_match_plain(host_k1, host_libs, R, C, K):
         cfg = EnvConfig.create(R, C, K, 30, colourless_specials=specials[0],
                                colour_specials=specials[1])
         inputs = (colour, kind, keys, z, z, z)
-        got = _k2_run(k2, cfg, inputs, 64)
+        got = cascade_sp_chunk(cfg, *inputs, 64)
         want = cascade_sp_reference(cfg, *inputs, limit=64)
         for name, g, w in zip(NAMES, got, want):
             assert torch.equal(g, w), (specials, name)
         assert int(want[5].sum()) > 0  # specials activated
-        mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
-        assert k3(got[0].data_ptr(), got[1].data_ptr(), mask.data_ptr(), B, R, C, 1) == 0
+        mask = settled_mask_sp(cfg, got[0], got[1])
         assert torch.equal(mask, effective_mask_settled(cfg, got[0], got[1]))
 
 
@@ -328,13 +252,12 @@ def test_painted_edges_match_plain(host_k1, host_libs, R, C, K):
 # at a config's shape, at rows and columns of 32 cells (the most one 32-bit
 # window of a mask takes) and at an odd shape
 @pytest.mark.parametrize("R,C", [(10, 10), (6, 32), (32, 6), (9, 7)])
-def test_fixed_geometry_matches_plain(tmp_path_factory, R, C):
+def test_fixed_geometry_matches_plain(host_kernels, R, C):
     """K1 (random boards, one-colour boards whose rows and columns are each
     one run, painted runs of up to 32 cells on the edges) and K2 with and
     without the bomb (sprinkled and painted boards) built for one board
     shape; another shape is refused."""
-    k1 = _k1_fn(_host_build(tmp_path_factory, "cascade", (R, C)))
-    k2 = _k2_fn(_host_build(tmp_path_factory, "cascade_sp", (R, C)))
+    host_kernels("fused_cascade", "cascade_sp_chunk", shape=(R, C))
     B = 32
     for K, colour, keys, max_cascades in (
         (4, *_k1_inputs(R, C, 4, B, seed=R * C), 64),
@@ -344,7 +267,7 @@ def test_fixed_geometry_matches_plain(tmp_path_factory, R, C):
     ):
         cfg = EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=(),
                                max_cascades=max_cascades)
-        for name, g, w in zip(K1_NAMES, _k1_run(k1, cfg, colour, keys),
+        for name, g, w in zip(K1_NAMES, fused_cascade(cfg, colour, keys),
                               cascade_reference(cfg, colour, keys)):
             assert torch.equal(g, w), ("K1", K, name)
     painted, kind = painted_edges(R, C, B, seed=R * C + 2, specials=True, longest=32)
@@ -355,27 +278,16 @@ def test_fixed_geometry_matches_plain(tmp_path_factory, R, C):
         for inputs in (_inputs(cfg, B, seed=R * C + len(specials[1])),
                        (painted, kind, torch.arange(2 * B, dtype=torch.int64).reshape(B, 2),
                         z, z, z)):
-            got = _k2_run(k2, cfg, inputs, 64)
+            got = cascade_sp_chunk(cfg, *inputs, 64)
             for name, g, w in zip(NAMES, got, cascade_sp_reference(cfg, *inputs, limit=64)):
                 assert torch.equal(g, w), (specials, name)
-    other = torch.ones(1, R + 1, C, dtype=torch.int32)
-    out = [torch.empty_like(other), *(torch.empty(1, dtype=t) for t in (torch.int32, torch.int32,
-                                                                       torch.bool)),
-           torch.empty(1, 2 * (R + 1) * C, dtype=torch.bool)]
-    keys = torch.zeros(1, 2, dtype=torch.int64)
-    assert k1(other.data_ptr(), keys.data_ptr(), *(t.data_ptr() for t in out),
-              1, R + 1, C, 4, 64) == -1
+    other = EnvConfig.create(R + 1, C, 4, 30, colourless_specials=(), colour_specials=())
+    with pytest.raises(RuntimeError, match="tmt_fused_cascade: launch failed with error -1"):
+        fused_cascade(other, torch.ones(1, R + 1, C, dtype=torch.int32),
+                      torch.zeros(1, 2, dtype=torch.int64))
 
 
 # ---- K3, the settled mask, on cell bit masks --------------------------------
-
-
-def _k3_run(k3, cfg, colour, kind):
-    B, R, C = colour.shape
-    mask = torch.empty(B, cfg.num_actions, dtype=torch.bool)
-    assert k3(colour.data_ptr(), kind.data_ptr(), mask.data_ptr(), B, R, C,
-              int(cfg.any_special)) == 0
-    return mask
 
 
 def _k3_cfg(R, C, K, any_special):
@@ -384,18 +296,16 @@ def _k3_cfg(R, C, K, any_special):
     return EnvConfig.create(R, C, K, 30, colourless_specials=(), colour_specials=())
 
 
-@pytest.fixture(scope="module")
-def host_k3(tmp_path_factory):
-    """K3's host build, per board shape as the card builds it: the library
-    of that shape at most 32 by 32, else the one of any shape."""
-    libs = {}
+@pytest.fixture
+def host_k3(host_kernels):
+    """K3's wrapper on the host build of board shape ``shape`` (None: of any
+    shape): ``host_k3(shape)(cfg, colour, kind)``."""
 
-    def get(shape):
-        if shape not in libs:
-            libs[shape] = _k3_fn(_host_build(tmp_path_factory, "mask_sp", shape))
-        return libs[shape]
+    def on(shape):
+        host_kernels("settled_mask_sp", shape=shape)
+        return settled_mask_sp
 
-    return get
+    return on
 
 
 def random_mask_boards(R, C, K, B, seed):
@@ -420,7 +330,7 @@ def test_settled_mask_board_program_matches_plain(host_k3, R, C, K, library, any
     cfg = _k3_cfg(R, C, K, any_special)
     colour, kind = random_mask_boards(R, C, K, 45, seed=R * C + K)  # not a multiple of 4
     want = effective_mask_settled(cfg, colour, kind)
-    assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind), want)
+    assert torch.equal(host_k3(shape)(cfg, colour, kind), want)
     assert 0 < int(want.sum()) < want.numel()
 
 
@@ -496,7 +406,7 @@ def test_settled_mask_painted_stencils_match_plain(host_k3, R, C, variant):
         cfg = _k3_cfg(R, C, 4, any_special)
         want = effective_mask_settled(cfg, colour, kind)
         for shape in {cuda_build.shape_of(R, C), None}:
-            assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind), want), (shape, any_special)
+            assert torch.equal(host_k3(shape)(cfg, colour, kind), want), (shape, any_special)
         if variant == "cookie" and not any_special:  # the guards turned painted stencils off
             assert int(want.sum()) < int(effective_mask_settled(cfg, colour, normal).sum())
         elif variant == "colour0":
@@ -511,7 +421,7 @@ def test_settled_mask_painted_edges_match_plain(host_k3, R, C, K):
     colour, kind = painted_edges(R, C, 48, seed=R * C + 3, specials=True, longest=32)
     for any_special in (True, False):
         cfg = _k3_cfg(R, C, K, any_special)
-        got = _k3_run(host_k3(cuda_build.shape_of(R, C)), cfg, colour, kind)
+        got = host_k3(cuda_build.shape_of(R, C))(cfg, colour, kind)
         assert torch.equal(got, effective_mask_settled(cfg, colour, kind)), any_special
 
 
@@ -522,62 +432,38 @@ def test_settled_mask_one_board_and_refused_shape(host_k3):
         cfg = _k3_cfg(R, C, 3, True)
         colour, kind = random_mask_boards(R, C, 3, 1 if (R, C) == (10, 10) else 16, seed=R + C)
         for shape in {cuda_build.shape_of(R, C), None}:
-            assert torch.equal(_k3_run(host_k3(shape), cfg, colour, kind),
+            assert torch.equal(host_k3(shape)(cfg, colour, kind),
                                effective_mask_settled(cfg, colour, kind))
     other = torch.ones(1, 11, 10, dtype=torch.int32)
-    mask = torch.empty(1, 2 * 110 - 21, dtype=torch.bool)
-    assert host_k3((10, 10))(other.data_ptr(), other.data_ptr(), mask.data_ptr(), 1, 11, 10, 1) == -1
+    with pytest.raises(RuntimeError, match="tmt_settled_mask_sp: launch failed with error -1"):
+        host_k3((10, 10))(_k3_cfg(11, 10, 3, True), other, other)
 
 
 H100_SMEM_OPTIN = 232448  # shared memory one block may opt in to on an H100, in bytes
 
 
 def test_settled_mask_size_check_takes_one_board(tmp_path_factory):
-    """The wrapper's size check holds one board's shared memory against the
-    block's limit (a block takes fewer boards where several overflow it):
-    on an H100 every board up to 150x150 runs, beyond K1's and K2's limits."""
-    lib = _host_build(tmp_path_factory, "mask_sp")
-    lib.tmt_settled_mask_sp_smem.restype = ctypes.c_longlong
-
-    def optin():
-        return H100_SMEM_OPTIN
-
-    card = types.SimpleNamespace(tmt_settled_mask_sp_smem=lib.tmt_settled_mask_sp_smem,
-                                 tmt_smem_optin=optin)
+    """The wrapper's size check holds one board's shared memory (the fit
+    function the table names) against the block's limit (a block takes
+    fewer boards where several overflow it): on an H100 every board up to
+    150x150 runs, beyond K1's and K2's limits."""
+    lib = host_build(tmp_path_factory, "mask_sp")
+    smem = cuda_build.c_function(lib, cuda_build.KERNELS["settled_mask_sp"].smem,
+                                 [ctypes.c_int] * 2, ctypes.c_longlong)
     for R, C in ((10, 10), (36, 36), (75, 75), (80, 80), (100, 100), (150, 150)):
-        cuda_build.check_fits(card, "settled_mask_sp", R, C, "settled_mask_sp")
-    assert lib.tmt_settled_mask_sp_smem(10, 10) < 2048
+        cuda_build.check_fits("settled_mask_sp", R, C, smem(R, C), H100_SMEM_OPTIN)
+    assert smem(10, 10) < 2048
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_build.check_fits(card, "settled_mask_sp", 160, 160, "settled_mask_sp")
+        cuda_build.check_fits("settled_mask_sp", 160, 160, smem(160, 160), H100_SMEM_OPTIN)
 
 
 # ---- csrc/threefry_words.cu: random.py's words, one launch a call ----------
 
-_TF_HOST = {
-    "tmt_threefry_words": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                           ctypes.c_uint, ctypes.c_int, ctypes.c_void_p],
-    "tmt_threefry_uniform": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.c_uint, ctypes.c_float, ctypes.c_double, ctypes.c_double,
-                             ctypes.c_void_p],
-    "tmt_threefry_fold_in": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p],
-    "tmt_threefry_randint": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p],
-}
-
-
 @pytest.fixture(scope="module", params=[None, (10, 10)], ids=["any-shape", "10x10"])
-def host_threefry(request, tmp_path_factory):
-    """``csrc/threefry_words.cu`` built for the host, with no board shape
-    and with the one ``tmt_bench`` builds every source under."""
-    lib = _host_build(tmp_path_factory, "threefry_words", request.param)
-    fns = {}
-    for name, args in _TF_HOST.items():
-        fn = getattr(lib, f"{name}_host")
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+def host_threefry(request):
+    """The board shape ``csrc/threefry_words.cu`` is built for on the host:
+    none, and the one ``tmt_bench`` builds every source under."""
+    return request.param
 
 
 def _tf_keys(M, seed):
@@ -635,59 +521,102 @@ def _tf_call(fn, keys, args, seed):
 
 
 @pytest.mark.parametrize("fn,keys,args", _TF_CASES, ids=[f"{f}-{k}-{i}" for i, (f, k, _) in enumerate(_TF_CASES)])
-def test_threefry_words_match_plain(host_threefry, monkeypatch, fn, keys, args):
+def test_threefry_words_match_plain(host_threefry, host_kernels, fn, keys, args):
     """Each entry point, through ``random.py``'s own wrapper (its key
     strides, broadcasts and dtypes), equals the plain int64 version word for
     word: the wrapper's launch runs the host build instead of the card."""
     seed = len(str(args)) + 17
     k = _tf_key_arg(keys, seed)
     want = _tf_call(fn, k, args, seed)
-    calls = []
-
-    def host_launch(name, device, words, *cargs):
-        calls.append((name, words))
-        assert host_threefry[name](*cargs) == 0
-
-    monkeypatch.setattr(trandom, "_on_card", lambda keys: True)
-    monkeypatch.setattr(trandom, "_launch", host_launch)
+    host_kernels("threefry_words", shape=host_threefry)
+    before = cuda_build.launches["threefry_words"]
     got = _tf_call(fn, k, args, seed)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
-    assert len(calls) == 1  # one launch a call
+    assert cuda_build.launches["threefry_words"] == before + 1  # one launch a call
 
 
 # ---- the line test, run-member mask and has-any-line ------------------------
 
 
-@pytest.fixture(scope="module")
-def host_line_test(tmp_path_factory):
-    """The line test's host build, (member, any): one library for every
-    board shape, as the card builds it."""
-    lib = _host_build(tmp_path_factory, "line_test")
-    fns = []
-    for what in ("member", "any"):
-        fn = getattr(lib, f"tmt_line_test_{what}_host")
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    return fns
-
-
 @pytest.mark.parametrize("R,C,K,kind", LINE_CASES, ids=line_case_ids(LINE_CASES))
-def test_line_test_board_program_matches_plain(host_line_test, R, C, K, kind):
-    """The line test's board program (one thread a cell) equals
-    ``run_member_mask`` and ``has_any_line`` on random boards, boards of
-    which some are line-free, boards whose runs touch the edges, and boards
-    with zero-colour cells; a shape with no cells is refused."""
+def test_line_test_board_program_matches_plain(host_kernels, R, C, K, kind):
+    """The line test's board program (one thread a cell), through
+    ``run_member_mask`` and ``has_any_line`` themselves, equals the plain
+    version on random boards, boards of which some are line-free, boards
+    whose runs touch the edges, and boards with zero-colour cells; a shape
+    with no cells is refused."""
     B = 61
     colour = line_boards(kind, R, C, K, B, seed=R * C + K + LINE_KINDS.index(kind))
     want_member, want_any = plain_line_test(colour)
     assert int(want_any.sum()) > 0 and (kind != "sparse" or R * C > 100 or int(want_any.sum()) < B)
-    member_fn, any_fn = host_line_test
-    member = torch.empty(B, R, C, dtype=torch.bool)
-    any_ = torch.empty(B, dtype=torch.bool)
-    assert member_fn(colour.data_ptr(), member.data_ptr(), B, R, C) == 0
-    assert any_fn(colour.data_ptr(), any_.data_ptr(), B, R, C) == 0
+    host_kernels("line_test")
+    before = cuda_build.launches["line_test"]
+    member, any_ = run_member_mask(None, colour), has_any_line(None, colour)
+    assert cuda_build.launches["line_test"] == before + 2
     assert torch.equal(member, want_member)
     assert torch.equal(any_, want_any)
-    assert any_fn(colour.data_ptr(), any_.data_ptr(), 1, R, 0) == -1
+    with pytest.raises(RuntimeError, match="tmt_line_test_any: launch failed with error -1"):
+        cuda_build.launch("tmt_line_test_any", colour.device, None, colour.data_ptr(),
+                          any_.data_ptr(), 1, R, 0)
+
+
+# ---- the table of entry points against the sources ---------------------------
+
+_C_FUNCTION = re.compile(r'extern\s+"C"\s+[\w ]+?\s+(tmt_\w+)\s*\(([^)]*)\)\s*\{')
+_ENTRY_MACRO = re.compile(r"TMT_ENTRY\((tmt_\w+),([^)]*)\)\s*\{")  # csrc/threefry_words.cu
+_CTYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "unsigned": ctypes.c_uint,
+           "float": ctypes.c_float, "double": ctypes.c_double}
+
+
+def _params(text: str) -> list:
+    """[(type, name)] of a C parameter list, pointers written ``T*``."""
+    out = []
+    for p in text.split(","):
+        p = " ".join(p.replace("*", " * ").split())
+        kind, name = p.rsplit(" ", 1)
+        out.append((kind.replace(" *", "*"), name))
+    return out
+
+
+def _definitions() -> list:
+    """(source, name, parameters) of every C function ``csrc/*.cu`` defines,
+    in either build: its ``extern "C"`` functions, and for each
+    ``TMT_ENTRY`` the card's entry point (the stream last) and its host
+    twin."""
+    out = []
+    for path in sorted(CSRC.glob("*.cu")):
+        text = path.read_text()
+        out += [(path.stem, name, _params(p)) for name, p in _C_FUNCTION.findall(text)]
+        for name, p in _ENTRY_MACRO.findall(text):
+            out += [(path.stem, name, _params(p) + [("void*", "stream")]),
+                    (path.stem, f"{name}_host", _params(p))]
+    return out
+
+
+def test_entry_table_matches_the_sources():
+    """Every card entry point (a C function whose last parameter is the
+    stream) has exactly one entry in ``cuda_build.KERNELS``, under its
+    kernel's source, with the ctypes of its parameters but the stream; the
+    host twin the seam drives takes the same parameters but the stream;
+    each fit function the table names is defined by its source; and the
+    table's kernels are the keys of the launch counts and hold every
+    kernel a bench config requires."""
+    defs = _definitions()
+    card = {}
+    for source, name, params in defs:
+        if params[-1] == ("void*", "stream"):
+            assert name not in card, f"{name} is defined twice"
+            card[name] = (source, params[:-1])
+    assert sorted(card) == sorted(cuda_build.ENTRIES)
+    twins = {name: params for _, name, params in defs if name.endswith("_host")}
+    for symbol, (kernel, args) in cuda_build.ENTRIES.items():
+        source, params = card[symbol]
+        assert source == cuda_build.KERNELS[kernel].source, symbol
+        assert [ctypes.c_void_p if t.endswith("*") else _CTYPES[t] for t, _ in params] == list(args), symbol
+        assert [t for t, _ in twins[f"{symbol}_host"]] == [t for t, _ in params], symbol
+    for kernel in cuda_build.KERNELS.values():
+        if kernel.smem is not None:
+            assert (kernel.source, kernel.smem, [("int", "R"), ("int", "C")]) in defs
+    assert list(cuda_build.launches) == list(cuda_build.KERNELS)
+    assert {n for names in bench.PATH_KERNELS.values() for n in names} <= set(cuda_build.KERNELS)

@@ -12,6 +12,7 @@ import numpy as np
 import jax
 import torch
 
+from tile_match_tpu_torch import cuda_build
 from tools import make_torch_port_fixture as fixture_tool
 
 torch.set_num_threads(1)
@@ -44,8 +45,7 @@ def test_qnetwork_equals_the_recorded_flax_q():
 
 
 def test_entry_equals_the_recorded_jax_entry():
-    assert chip_smoke.check_entry("cpu") == {
-        n: 0 for n in (*chip_smoke.KERNELS, "threefry_words", "line_test")}
+    assert chip_smoke.check_entry("cpu") == dict.fromkeys(cuda_build.KERNELS, 0)
 
 
 def test_fixture_draws_and_q_are_up_to_date():

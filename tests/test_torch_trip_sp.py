@@ -8,8 +8,8 @@ the activation machine, gravity, refill) equals the JAX package's
 special set ``EnvConfig.create`` accepts, on the boards K2 freezes (random
 boards with sprinkled specials, and painted boards for each freeze reason)
 and on boards K2 never saw.  ``csrc/trip_sp.cu`` compiled as plain C++
-(``-DTMT_HOST_BUILD``, as ``test_torch_kernels_host.py`` builds K1-K3)
-equals the plain trip on the same boards, with caps tight enough that each
+(``-DTMT_HOST_BUILD``, as ``test_torch_kernels_host.py`` builds K1-K3) and run by the wrapper itself
+through the host seam equals the plain trip on the same boards, with caps tight enough that each
 fires, at 36x36 (the library of any shape) and in fixed-shape libraries;
 its cap flags raise the plain trip's ``debug_checks`` messages.
 ``test_torch_kernels_cuda.py`` holds the kernel itself on the card.
@@ -32,10 +32,12 @@ import torch
 from chip_smoke import CAPS, cap_board
 from tests.ops.test_rich_trips import CASES as PAINTED
 from tests.ops.test_rich_trips import hline, shape_batch, vline
-from tests.test_torch_kernels_host import H100_SMEM_OPTIN, _host_build
+from tests.test_torch_kernels_host import H100_SMEM_OPTIN
 from tests.test_torch_specials import sprinkled
+from tests.torch_port_helpers import host_build, host_kernels  # noqa: F401  (a fixture)
 from tile_match_tpu import engine as jengine
 from tile_match_tpu.config import EnvConfig as JaxConfig
+from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch import engine
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.ops import trip_sp
@@ -178,36 +180,25 @@ def test_trip_matches_jax(i):
 # ---- K4's board program, built for the host ---------------------------------
 
 
-def _k4_fn(lib):
-    fn = lib.tmt_specials_trip_host
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-    fn.restype = ctypes.c_int
-    return fn
+@pytest.fixture
+def host_k4(host_kernels):
+    """K4's wrapper on the host build of any board shape."""
+    host_kernels("specials_trip", shape=None)
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    return _host_build(tmp_path_factory, "trip_sp")
-
-
-def run_k4(fn, cfg, colour, kind, keys, trips):
-    """K4's host build on numpy inputs: (the six outputs, cap bits, lines
-    detected), torch tensors."""
-    colour, kind = torch.from_numpy(colour), torch.from_numpy(kind)
-    keys = torch.from_numpy(keys.astype(np.int64))
-    trips = torch.from_numpy(trips)
-    n, R, C = colour.shape
-    out = [torch.empty_like(colour), torch.empty_like(kind)]
-    out += [torch.empty(n, dtype=torch.int32) for _ in range(3)]
-    ovf = torch.empty(n, dtype=torch.bool)
-    caps = torch.empty(n, dtype=torch.int32)
-    lines = torch.empty(n, dtype=torch.int32)
-    err = fn(colour.data_ptr(), kind.data_ptr(), keys.data_ptr(), trips.data_ptr(),
-             *(t.data_ptr() for t in out), ovf.data_ptr(), caps.data_ptr(), lines.data_ptr(),
-             n, R, C, cfg.num_colours, cfg.lines_max, cfg.stack_max, int(cfg.cookie),
-             int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb))
-    assert err == 0
-    return (*out, ovf), caps, lines
+def run_k4(cfg, colour, kind, keys, trips):
+    """K4's wrapper on numpy inputs, on the host build the seam points it
+    at: (the six outputs, cap bits, lines detected), torch tensors; the
+    caps and lines are those the wrapper reads back with ``debug_checks``
+    on, recorded in place of its raising."""
+    t = (torch.from_numpy(colour), torch.from_numpy(kind), torch.from_numpy(keys.astype(np.int64)),
+         torch.from_numpy(trips))
+    read = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trip_sp, "raise_caps", lambda cfg, caps, lines: read.append((caps, lines)))
+        got = trip_sp.specials_trip(dataclasses.replace(cfg, debug_checks=True), *t)
+    ((caps, lines),) = read
+    return got, caps, lines
 
 
 def _assert_equal(got, want, tag):
@@ -216,33 +207,34 @@ def _assert_equal(got, want, tag):
 
 
 @pytest.mark.parametrize("i", range(len(SETS)), ids=SET_IDS)
-def test_board_program_matches_plain(host_lib, i):
+def test_board_program_matches_plain(host_k4, i):
     jc, tc = _set_cfgs(i)
     inputs = trip_inputs(jc, tc, seed=100 + i)[:4]
-    got, caps, _ = run_k4(_k4_fn(host_lib), tc, *inputs)
+    got, caps, _ = run_k4(tc, *inputs)
     _assert_equal(got, _plain(tc, *inputs), SET_IDS[i])
     assert int(caps.sum()) == 0
 
 
 @pytest.mark.parametrize("R,C,K,specials", [(10, 10, 4, ALL),
                                             (9, 7, 2, (("cookie",), ("vertical_laser",)))])
-def test_fixed_shape_library_matches_plain(tmp_path_factory, R, C, K, specials):
+def test_fixed_shape_library_matches_plain(host_kernels, R, C, K, specials):
     """The libraries of one board shape (geometry fixed at compile time), as
     the card builds them for boards up to 32 by 32."""
-    fn = _k4_fn(_host_build(tmp_path_factory, "trip_sp", (R, C)))
+    host_kernels("specials_trip", shape=(R, C))
     jc, tc = _cfgs(R, C, K, specials)
     inputs = trip_inputs(jc, tc, seed=R * C)[:4]
-    got, _, _ = run_k4(fn, tc, *inputs)
+    got, _, _ = run_k4(tc, *inputs)
     _assert_equal(got, _plain(tc, *inputs), f"{R}x{C}")
-    with pytest.raises(AssertionError):  # another shape is refused
-        run_k4(fn, tc, *(np.ascontiguousarray(a[:, :, :-1]) if a.ndim == 3 else a for a in inputs))
+    narrow = _cfgs(R, C - 1, K, specials)[1]
+    with pytest.raises(RuntimeError, match="error -1"):  # another shape is refused
+        run_k4(narrow, *(np.ascontiguousarray(a[:, :, :-1]) if a.ndim == 3 else a for a in inputs))
 
 
-def test_board_program_36x36(host_lib):
+def test_board_program_36x36(host_k4):
     """Above 32x32: the library whose geometry is read at run time."""
     jc, tc = _cfgs(36, 36, 6, ALL)
     inputs = trip_inputs(jc, tc, seed=36, n=24)[:4]
-    got, _, _ = run_k4(_k4_fn(host_lib), tc, *inputs)
+    got, _, _ = run_k4(tc, *inputs)
     _assert_equal(got, _plain(tc, *inputs), "36x36")
     assert int(got[3].sum()) > 0
 
@@ -268,14 +260,14 @@ def _k4_error(tc, caps, lines):
 
 
 @pytest.mark.parametrize("cap", CAPS)
-def test_painted_cap_fires_as_in_plain(host_lib, cap):
+def test_painted_cap_fires_as_in_plain(host_k4, cap):
     """Each cap on a painted board: the same outputs and ``ovf`` in K4, the
     plain trip and JAX's, the cap's flag, and the plain trip's
     ``debug_checks`` message."""
     R, C, K, kw, colour, kind = cap_board(cap)
     jc, tc = _cfgs(R, C, K, ALL, **kw)
     inputs = (colour[None], kind[None], np.array([[3, 4]], np.uint32), np.zeros(1, np.int32))
-    got, caps, lines = run_k4(_k4_fn(host_lib), tc, *inputs)
+    got, caps, lines = run_k4(tc, *inputs)
     want = _plain(tc, *inputs)
     _assert_equal(got, want, cap)
     for name, g, w in zip(NAMES, want, _jax_trips(jc, *inputs)):
@@ -289,13 +281,13 @@ def test_painted_cap_fires_as_in_plain(host_lib, cap):
                                 dict(max_stack=2), dict(max_lines=1, max_stack=1),
                                 dict(max_activation_steps=1)],
                          ids=["lines1", "lines2", "stack1", "stack2", "lines1-stack1", "steps1"])
-def test_tight_caps_match_plain(host_lib, kw):
+def test_tight_caps_match_plain(host_k4, kw):
     """Random frozen boards under tight caps: ``ovf`` and the boards equal
     where caps fire; the first cap's message is the plain trip's.  A trip
     has no step budget, so ``max_activation_steps`` changes nothing."""
     jc, tc = _cfgs(8, 8, 2, ALL, **kw)
     inputs = trip_inputs(jc, tc, seed=7)[:4]
-    got, caps, lines = run_k4(_k4_fn(host_lib), tc, *inputs)
+    got, caps, lines = run_k4(tc, *inputs)
     _assert_equal(got, _plain(tc, *inputs), str(kw))
     assert _k4_error(tc, caps, lines) == _plain_error(tc, inputs)
     fired = int((caps != 0).sum())
@@ -303,26 +295,27 @@ def test_tight_caps_match_plain(host_lib, kw):
     assert int(got[5].sum()) == fired
 
 
-def test_size_limits(host_lib):
+def test_size_limits(tmp_path_factory, host_k4):
     """K4 takes boards of up to 65,535 cells; its scratch lies in shared
     memory up to the block's limit and in device memory beyond."""
-    smem = host_lib.tmt_specials_trip_smem
-    smem.argtypes = [ctypes.c_int] * 5
-    smem.restype = ctypes.c_longlong
+    smem = cuda_build.c_function(host_build(tmp_path_factory, "trip_sp"), "tmt_specials_trip_smem",
+                                 [ctypes.c_int] * 5, ctypes.c_longlong)
 
     def default(R, C, K=6):
         return smem(R, C, K, R + C, R * C + 8)
 
     assert default(10, 10, 4) < 48 * 1024 < default(36, 36) < H100_SMEM_OPTIN < default(86, 86)
-    trip_sp.check_size(255, 257)
+    cuda_build.check_fits("specials_trip", 255, 257)
     with pytest.raises(ValueError, match="65535 cells"):
-        trip_sp.check_size(256, 256)
-    fn = _k4_fn(host_lib)
+        cuda_build.check_fits("specials_trip", 256, 256)
     tc = EnvConfig.create(256, 256, 4, 30)
-    z = np.zeros(1, np.int32)
-    with pytest.raises(AssertionError):  # the library refuses it too
-        run_k4(fn, tc, np.ones((1, 256, 256), np.int32), np.ones((1, 256, 256), np.int32),
-               np.zeros((1, 2), np.uint32), z)
+    board = torch.ones((1, 256, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="65535 cells"):  # the wrapper's check
+        trip_sp.specials_trip(tc, board, board, torch.zeros((1, 2), dtype=torch.int64),
+                              torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="error -1"):  # the library refuses it too
+        cuda_build.launch("tmt_specials_trip", board.device, None, *[None] * 13, 1, 256, 256, 4,
+                          tc.lines_max, tc.stack_max, 1, 1, 1, 1)
 
 
 def test_wrapper_runs_the_plain_trip_on_the_cpu():
@@ -330,8 +323,8 @@ def test_wrapper_runs_the_plain_trip_on_the_cpu():
     colour, kind, keys, trips, _ = trip_inputs(jc, tc, seed=3, n=40)
     t = (torch.from_numpy(colour), torch.from_numpy(kind), torch.from_numpy(keys.astype(np.int64)),
          torch.from_numpy(trips))
-    before = trip_sp.launches
+    before = cuda_build.launches["specials_trip"]
     _assert_equal(trip_sp.specials_trip(tc, *t), engine.specials_cascade_trip(tc, *t), "cpu")
-    assert trip_sp.launches == before
+    assert cuda_build.launches["specials_trip"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         trip_sp.specials_trip(tc, *(x.to("meta") for x in t))

@@ -1,14 +1,20 @@
 """Shared by the tests that hold the PyTorch port against the JAX package:
-paired configs, field-by-field comparison, the deterministic policy and
-the learners' leaf-by-leaf gaps."""
+paired configs, field-by-field comparison, the deterministic policy, the
+learners' leaf-by-leaf gaps, and the host seam that runs the kernel
+wrappers on the CUDA sources built for the host."""
 
+import ctypes
 import dataclasses
 import math
+import shutil
+import subprocess
 
 import numpy as np
+import pytest
 import torch
 
 from tile_match_tpu.config import EnvConfig as JaxConfig
+from tile_match_tpu_torch import cuda_build
 from tile_match_tpu_torch.config import EnvConfig
 from tile_match_tpu_torch.state import StepInfo
 from tools.make_torch_port_fixture import policy_actions as policy_np  # noqa: F401
@@ -80,3 +86,59 @@ def assert_changes(params: dict, jparams: dict, start: dict, tag) -> None:
 def port_moments(net, opt) -> dict:
     """Adam's first moment of each of ``net``'s parameters, by name."""
     return {n: opt.state[p]["exp_avg"].clone() for n, p in net.named_parameters()}
+
+
+# ---- the kernels' host builds and the host seam ------------------------------
+
+_HOST_BUILDS: dict = {}
+
+
+def host_build(tmp_path_factory, source: str, shape=None) -> ctypes.CDLL:
+    """``csrc/<source>.cu`` built for the host (``g++ -DTMT_HOST_BUILD``: the
+    board programs as loops over the cells, each entry point's ``_host``
+    twin in place of the launch): with ``shape`` = (R, C) the library of
+    that board shape (its geometry fixed at compile time, as the card's
+    libraries of boards up to 32 by 32), else the one whose geometry is read
+    at run time (any board).  Built once a test run; skips without g++."""
+    key = (source, shape)
+    if key not in _HOST_BUILDS:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            pytest.skip("needs g++ to build the kernels' board programs for the host")
+        defines = [] if shape is None else [f"-DTMT_ROWS={shape[0]}", f"-DTMT_COLS={shape[1]}"]
+        so = tmp_path_factory.mktemp("host_build") / f"lib{source}_host.so"
+        subprocess.run(
+            [gxx, "-O2", "-std=c++17", "-x", "c++", "-DTMT_HOST_BUILD", *defines, "-shared", "-fPIC",
+             "-I", str(cuda_build.CSRC), "-o", str(so), str(cuda_build.CSRC / f"{source}.cu")],
+            check=True, capture_output=True, text=True,
+        )
+        _HOST_BUILDS[key] = ctypes.CDLL(str(so))
+    return _HOST_BUILDS[key]
+
+
+_CARD = object()  # the library the card would load for the board
+
+
+@pytest.fixture
+def host_kernels(tmp_path_factory, monkeypatch):
+    """The host seam: ``host_kernels(*names, shape=...)`` points the launch
+    path (``cuda_build``) at the host builds, so that the wrappers of the
+    kernels ``names``, called on CPU tensors, marshal their arguments and
+    launch their entry points' host twins as they launch the kernels on the
+    card.  The library is the one the card loads for the board
+    (``cuda_build.shape_of``), or with ``shape`` the one of that board
+    shape (None: of any shape) whatever the board.  A host build has no
+    shared memory: K4's and K5's scratch lies in the buffers their wrappers
+    allocate.  Undone at the test's end."""
+
+    def seam(*names, shape=_CARD):
+        def library(source, board):
+            if shape is not _CARD:
+                return host_build(tmp_path_factory, source, shape)
+            return host_build(tmp_path_factory, source,
+                              None if board is None else cuda_build.shape_of(*board))
+
+        for name in names:
+            monkeypatch.setitem(cuda_build._host, name, library)
+
+    return seam

@@ -134,7 +134,7 @@ def _option(argv, name):
 
 
 def main(argv=None) -> int:
-    from .parity import resolve_device
+    from .cuda_build import resolve_device
     from .profiling import timed_windows
     from .tools.parity_check import gate
 

@@ -469,37 +469,53 @@ extern "C" int tmt_combination_trip(int* colour, int* kind, const long long* key
 
 #include <vector>
 
-// As tmt_combination_trip, board by board on the host, with separate
-// inputs and outputs (an unflagged board is copied through); returns 0, or
-// -1 for a board or config the library does not take.
-extern "C" int tmt_combination_trip_host(const int* colour_in, const int* kind_in,
-                                         const long long* keys, const int* coord1,
-                                         const int* coord2, const bool* comb, int* colour_out,
-                                         int* kind_out, long long* key_out, int* elim, int* act,
-                                         bool* ovf, int* caps, int* live, int B, int R, int C,
-                                         int K, int SM, int steps) {
+// As tmt_combination_trip_plan, for the host build below: one warp in one
+// block, its scratch plan[2] bytes in the caller's buffer.
+extern "C" int tmt_combination_trip_plan(int B, int R, int C, int K, int SM, long long* plan) {
+  const tmt::CombConfig cf{R, C, K, SM, 0};
+  if (!tmt::comb_takes(cf) || B < 0) return -1;
+  plan[0] = 1;
+  plan[1] = 1;
+  plan[2] = static_cast<long long>(tmt::comb_bytes<tmt::Geometry>(cf));
+  return 0;
+}
+
+// As tmt_combination_trip, board by board on the host, with the card's
+// arguments but the stream: the flagged boards updated in place (an
+// unflagged board is neither read nor written), a board's scratch at the
+// start of `scratch` (or, null, in a buffer of its own); the grid's warps
+// and blocks, which it does not use, are at least 1 as on the card.
+// Returns 0, or -1 for a board, config or grid the library does not take.
+extern "C" int tmt_combination_trip_host(int* colour, int* kind, const long long* keys,
+                                         const int* coord1, const int* coord2, const bool* comb,
+                                         long long* key_out, int* elim, int* act, bool* ovf,
+                                         int* caps, int* live, void* scratch, int B, int R, int C,
+                                         int K, int SM, int steps, int warps, int blocks) {
   const tmt::CombConfig cf{R, C, K, SM, steps};
-  if (!tmt::comb_takes(cf)) return -1;
+  if (!tmt::comb_takes(cf) || warps < 1 || blocks < 1) return -1;
   const int n = R * C;
   const tmt::Warp w{n};
-  std::vector<uint64_t> scratch(tmt::comb_bytes<tmt::Geometry>(cf) / 8 + 2);
+  std::vector<uint64_t> own(scratch != nullptr ? 0 : tmt::comb_bytes<tmt::Geometry>(cf) / 8 + 2);
   tmt::CombSmem<tmt::Geometry> s;
-  s.carve(reinterpret_cast<unsigned char*>(scratch.data()), cf);
+  s.carve(scratch != nullptr ? static_cast<unsigned char*>(scratch)
+                             : reinterpret_cast<unsigned char*>(own.data()),
+          cf);
   return tmt::with_words<tmt::Geometry>(tmt::plane_words(n), [&](auto words) {
     const tmt::BitWarp<decltype(words)::value> bw{n, tmt::plane_words(n), 0};
     for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
-      for (int i = 0; i < n; ++i) {
-        s.x[i] = colour_in[b * n + i];
-        s.k[i] = kind_in[b * n + i];
-      }
       tmt::CombResult res{0, 0, 0, 0, 0, static_cast<uint32_t>(keys[2 * b]),
                           static_cast<uint32_t>(keys[2 * b + 1])};
-      if (comb[b])
+      if (comb[b]) {
+        for (int i = 0; i < n; ++i) {
+          s.x[i] = colour[b * n + i];
+          s.k[i] = kind[b * n + i];
+        }
         tmt::comb_program(w, bw, s, cf, coord1[2 * b], coord1[2 * b + 1], coord2[2 * b],
                           coord2[2 * b + 1], tmt::comb_keys(res.key0, res.key1, 0), res);
-      for (int i = 0; i < n; ++i) {
-        colour_out[b * n + i] = s.x[i];
-        kind_out[b * n + i] = s.k[i];
+        for (int i = 0; i < n; ++i) {
+          colour[b * n + i] = s.x[i];
+          kind[b * n + i] = s.k[i];
+        }
       }
       key_out[2 * b] = res.key0;
       key_out[2 * b + 1] = res.key1;

@@ -682,21 +682,27 @@ extern "C" int tmt_specials_trip(const int* colour_in, const int* kind_in, const
 
 #include <vector>
 
-// As tmt_specials_trip, on the host; returns 0, or -1 for a board or
-// config the library does not take.
+// As tmt_specials_trip, on the host, with the card's arguments but the
+// stream: each board's scratch at scratch + b * tmt_specials_trip_smem
+// bytes, or (a null scratch) in a buffer of its own.  Returns 0, or -1 for
+// a board or config the library does not take.
 extern "C" int tmt_specials_trip_host(const int* colour_in, const int* kind_in,
                                       const long long* sub_keys, const int* trips, int* colour_out,
                                       int* kind_out, int* elim, int* act, int* created, bool* ovf,
-                                      int* caps, int* lines, int B, int R, int C, int K, int LM,
-                                      int SM, int cookie, int v_laser, int h_laser, int bomb) {
+                                      int* caps, int* lines, void* scratch, int B, int R, int C,
+                                      int K, int LM, int SM, int cookie, int v_laser, int h_laser,
+                                      int bomb) {
   const tmt::TripConfig cf{R, C, K, LM, SM, cookie != 0, v_laser != 0, h_laser != 0, bomb != 0};
   if (!tmt::trip_takes(cf)) return -1;
   const int n = R * C;
   const tmt::Warp w{n};
-  std::vector<uint64_t> scratch(tmt::trip_bytes<tmt::Geometry>(cf) / 8 + 2);
+  const size_t bytes = tmt::trip_bytes<tmt::Geometry>(cf);
+  std::vector<uint64_t> own(scratch != nullptr ? 0 : bytes / 8 + 2);
   tmt::TripSmem<tmt::Geometry> s;
-  s.carve(reinterpret_cast<unsigned char*>(scratch.data()), cf);
   for (size_t b = 0; b < static_cast<size_t>(B); ++b) {
+    s.carve(scratch != nullptr ? static_cast<unsigned char*>(scratch) + b * bytes
+                               : reinterpret_cast<unsigned char*>(own.data()),
+            cf);
     for (int i = 0; i < n; ++i) {
       s.x[i] = colour_in[b * n + i];
       s.k[i] = kind_in[b * n + i];

@@ -14,11 +14,24 @@ for.
 ``build_all`` compiles several libraries at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU-only test machines import every
 module but never build.
+
+This module is also the kernel wrappers' one seam to ``csrc/``.
+``KERNELS`` is the table of the port's kernels: each one's source, its
+device name in a profile, its C entry points with their argument types,
+and its shared-memory fit function.  Every reader of which kernels the
+port has reads it.  ``on_card`` is the device route of every wrapper (a
+CUDA tensor launches the kernel, a CPU tensor runs the plain version).
+``check_inputs`` and ``check_fits`` are the wrappers' input and size
+checks.  ``launch`` binds an entry once per board shape and card, calls it
+on the current stream, raises on an error and counts the launch in
+``launches``, the one mapping of launch counts by kernel name.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -26,6 +39,8 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -162,24 +177,6 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def check_fits(lib: ctypes.CDLL, name: str, R: int, C: int, kernel: str) -> None:
-    """Raise ValueError, with the sizes, if an R x C board is beyond what
-    kernel ``name`` of ``lib`` takes on the current device: its shared
-    memory (``tmt_<name>_smem``) over the block's opt-in limit, or more
-    cells than a 16-bit cell index holds."""
-    smem = getattr(lib, f"tmt_{name}_smem")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem.restype = ctypes.c_longlong
-    lib.tmt_smem_optin.argtypes = []
-    lib.tmt_smem_optin.restype = ctypes.c_int
-    need, limit = smem(R, C), lib.tmt_smem_optin()
-    if need > limit or R * C > 65535:
-        raise ValueError(
-            f"{kernel}: a {R}x{C} board ({R * C} cells) needs {need} bytes of shared memory "
-            f"a block; the card allows {limit} bytes and at most 65535 cells"
-        )
-
-
 def build_all(libs) -> None:
     """Build several libraries at once, one ``nvcc`` process each: each
     item a source name, or (name, shape); an item named twice is built
@@ -189,3 +186,183 @@ def build_all(libs) -> None:
     with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
         for _ in pool.map(lambda lib: build(*lib), libs):
             pass
+
+
+# ---- the entry points and the launch path --------------------------------------
+
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """A hand-written kernel of the port: its source ``csrc/<source>.cu``;
+    ``device_name``, a substring of the name a profile gives its device
+    kernel; ``entries``, its C entry points, each symbol with the ctypes of
+    its arguments but the last, the stream it launches on (each returns a
+    cudaError_t, and its host build's ``<symbol>_host`` twin takes the same
+    arguments but the stream); ``smem``, where a board lies in a block's
+    shared memory, the C function (R, C) -> the bytes a block needs."""
+
+    source: str
+    device_name: str
+    entries: dict
+    smem: str | None = None
+
+
+# The port's kernels, by the name their launches are counted under.
+KERNELS = {
+    "fused_cascade": Kernel("cascade", "cascade_kernel",
+                            {"tmt_fused_cascade": (_P,) * 7 + (_I,) * 5}, "tmt_fused_cascade_smem"),
+    "cascade_sp_chunk": Kernel("cascade_sp", "cascade_sp_kernel",
+                               {"tmt_cascade_sp": (_P,) * 15 + (_I,) * 10},
+                               "tmt_cascade_sp_chunk_smem"),
+    "settled_mask_sp": Kernel("mask_sp", "mask_sp_kernel",
+                              {"tmt_settled_mask_sp": (_P,) * 3 + (_I,) * 4},
+                              "tmt_settled_mask_sp_smem"),
+    # K4 and K5 put a board's scratch in device memory where it overflows a block
+    "specials_trip": Kernel("trip_sp", "specials_trip_kernel",
+                            {"tmt_specials_trip": (_P,) * 13 + (_I,) * 10}),
+    "combination_trip": Kernel("combination", "combination_trip_kernel",
+                               {"tmt_combination_trip": (_P,) * 13 + (_I,) * 8}),
+    "threefry_words": Kernel("threefry_words", "threefry_", {
+        "tmt_threefry_words": (_P, _L, _L, _L, _U, _I, _P),
+        "tmt_threefry_uniform": (_P, _L, _L, _L, _U, ctypes.c_float, ctypes.c_double,
+                                 ctypes.c_double, _P),
+        "tmt_threefry_fold_in": (_P, _L, _P, _L, _I, _U, _L, _P),
+        "tmt_threefry_randint": (_P, _L, _L, _L, _U, _L, _P),
+    }),
+    "line_test": Kernel("line_test", "line_test_", {"tmt_line_test_member": (_P, _P, _I, _I, _I),
+                                                    "tmt_line_test_any": (_P, _P, _I, _I, _I)}),
+}
+# entry point -> (its kernel's name, its arguments' ctypes but the stream)
+ENTRIES = {symbol: (name, args)
+           for name, k in KERNELS.items() for symbol, args in k.entries.items()}
+MAX_CELLS = 65535  # every board kernel holds a cell index in 16 bits
+
+# Each kernel's launches so far, by name; a run reads the difference.
+launches = dict.fromkeys(KERNELS, 0)
+
+# The tests' host seam (tests/torch_port_helpers.py): kernel name -> a
+# function (source, board) -> that source's library built for the host.  A
+# kernel named here launches its host twins on CPU tensors.
+_host: dict = {}
+
+
+def resolve_device(device) -> torch.device:
+    """The device of a Gym entry point: the card unless the caller names
+    another.  Raises when no card is there; nothing falls back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the port on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def on_card(name: str, t: torch.Tensor) -> bool:
+    """Whether kernel ``name``'s wrapper, called on ``t``, launches the
+    kernel (a CUDA tensor) or runs its plain version (a CPU tensor); any
+    other device raises."""
+    kind = t.device.type
+    if kind == "cuda":
+        return True
+    if kind == "cpu":
+        return name in _host
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def check_fits(name: str, R: int, C: int, need: int = 0, limit: int = 0) -> None:
+    """Raise ValueError, with the sizes, for an R x C board that kernel
+    ``name`` does not take: more cells than its 16-bit cell indices hold, or
+    ``need`` bytes of shared memory a block above the card's opt-in
+    ``limit``."""
+    if R < 1 or C < 1 or R * C > MAX_CELLS:
+        raise ValueError(f"{name}: a {R}x{C} board ({R * C} cells) is beyond the kernel's "
+                         f"{MAX_CELLS} cells")
+    if need > limit:
+        raise ValueError(f"{name}: a {R}x{C} board needs {need} bytes of shared memory a block; "
+                         f"the card allows {limit} bytes")
+
+
+def check_inputs(name: str, cfg, specs) -> None:
+    """Raise ValueError where a launch of kernel ``name`` would read what it
+    does not take: boards (the first spec's tensor, [B, R, C]) of another
+    shape than ``cfg``'s or beyond ``check_fits``'s cells, or a tensor of
+    ``specs`` [(argument, tensor, dtype, shape)] of another dtype or shape,
+    not contiguous, or off the boards' device."""
+    _, R, C = specs[0][1].shape
+    if (R, C) != (cfg.num_rows, cfg.num_cols):
+        raise ValueError(f"board shape {(R, C)} does not match the config")
+    check_fits(name, R, C)
+    device = specs[0][1].device
+    for arg, t, dtype, shape in specs:
+        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be a contiguous {dtype}{list(shape)} tensor "
+                             f"on {device}")
+
+
+def library(name: str, device: torch.device, board=None) -> ctypes.CDLL:
+    """The library a launch of kernel ``name`` on ``device`` runs, for an R
+    x C ``board`` (None: a source that reads no board shape): the card's,
+    or on the CPU the host build of the tests' seam."""
+    if device.type == "cpu":
+        return _host[name](KERNELS[name].source, board)
+    return _card_library(name, board)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_library(name: str, board) -> ctypes.CDLL:
+    return load(KERNELS[name].source, None if board is None else shape_of(*board))
+
+
+def c_function(lib: ctypes.CDLL, symbol: str, argtypes, restype=ctypes.c_int):
+    """C function ``symbol`` of ``lib``, typed."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def smem_optin(lib: ctypes.CDLL, device: torch.device) -> int:
+    """The shared memory one block may opt in to on ``device`` (``lib``'s
+    ``tmt_smem_optin``), in bytes; 0 on the CPU, whose host builds have
+    none."""
+    if device.type != "cuda":
+        return 0
+    with torch.cuda.device(device):
+        return c_function(lib, "tmt_smem_optin", ())()
+
+
+@functools.lru_cache(maxsize=None)
+def _card_entry(symbol: str, board, index: int):
+    """Entry point ``symbol`` of its library for ``board`` on card
+    ``index``, typed with the stream last, after its kernel's fit check:
+    once per entry, board and card."""
+    name, args = ENTRIES[symbol]
+    device = torch.device("cuda", index)
+    lib = library(name, device, board)
+    smem = KERNELS[name].smem
+    if smem is not None:
+        need = c_function(lib, smem, (_I, _I), _L)(*board)
+        check_fits(name, *board, need, smem_optin(lib, device))
+    return c_function(lib, symbol, (*args, _P))
+
+
+def launch(symbol: str, device: torch.device, board, *args) -> None:
+    """Launch C entry point ``symbol`` with ``args`` on ``device``'s current
+    stream (passed last), for an R x C ``board`` (None: a source that reads
+    no board shape), and count the launch under its kernel; raise
+    RuntimeError, naming the entry and the code, where it returned an
+    error.  On the CPU the entry's host twin runs, with no stream."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            err = _card_entry(symbol, board, device.index)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        name, argtypes = ENTRIES[symbol]
+        err = c_function(library(name, device, board), f"{symbol}_host", argtypes)(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: launch failed with error {err}")
+    launches[ENTRIES[symbol][0]] += 1

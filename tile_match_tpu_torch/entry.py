@@ -24,12 +24,12 @@ import torch
 
 from . import random as trandom
 from .config import EnvConfig
+from .cuda_build import resolve_device
 from .envs.batched import batched_reset, batched_step
 from .models.dqn import QNetwork, _encode, init_params, input_size
 from .parallel import gather_boards, launch, make_mesh, sharded_rollout, sharded_train_step
 from .parallel.distributed import default_backend
 from .parallel.sharding import mesh_device
-from .parity import resolve_device
 
 
 def entry(device=None):

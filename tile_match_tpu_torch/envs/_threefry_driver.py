@@ -16,9 +16,10 @@ import torch
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..engine import engine_move, generate_board
 from ..ops.effective import effective_mask
-from ..parity import action_index, resolve_device
+from ..parity import action_index
 from ..state import action_table
 
 

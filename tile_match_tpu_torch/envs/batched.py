@@ -16,9 +16,9 @@ import torch
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..engine import generate_board, reset
 from ..ops.mask_sp import settled_mask_sp
-from ..parity import resolve_device
 from ..profiling import span
 from ..state import EnvState, StepInfo
 from .fused import batched_step_fused

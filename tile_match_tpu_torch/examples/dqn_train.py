@@ -19,7 +19,7 @@ import torch.distributed as dist
 
 from .. import random as trandom
 from ..config import EnvConfig
-from ..parity import resolve_device
+from ..cuda_build import resolve_device
 
 
 def _sharded_rank(size, steps, batch, hidden, tp, device_type, log_every):

@@ -21,7 +21,7 @@ import torch.distributed as dist
 
 from .. import random as trandom
 from ..config import EnvConfig
-from ..parity import resolve_device
+from ..cuda_build import resolve_device
 
 
 def _rank(size, per_rank_batch, steps, device_type):

@@ -15,8 +15,8 @@ import torch
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..envs.batched import batched_reset, batched_step
-from ..parity import resolve_device
 from ..state import EnvState
 from ..wrappers import one_hot_board
 from .dqn import (

@@ -21,8 +21,8 @@ import torch
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..envs.batched import batched_reset, batched_step
-from ..parity import resolve_device
 from .dqn import scaled_reward
 
 

@@ -14,8 +14,8 @@ from torch import nn
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..envs.batched import batched_reset, batched_step
-from ..parity import resolve_device
 from ..state import EnvState
 from .dqn import (
     Dense,

@@ -16,8 +16,8 @@ import torch
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..envs.batched import batched_reset, batched_step
-from ..parity import resolve_device
 
 
 def _step(cfg: EnvConfig, states, mask, key, use_effective: bool):

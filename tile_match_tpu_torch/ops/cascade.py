@@ -15,9 +15,6 @@ tensors and runs ``cascade_reference`` on CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from .. import cuda_build
@@ -27,9 +24,6 @@ from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
 from .effective import effective_mask_settled
 from .lines import line_union_mask, plain_has_any_line
-
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
 
 
 def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
@@ -61,57 +55,26 @@ def cascade_reference(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tens
     return colour, elim, trips, truncated, mask
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(R: int, C: int, device: int):
-    """The launch function for R x C boards on card ``device``, after the
-    fit check: both once per shape and card."""
-    lib = cuda_build.load("cascade", cuda_build.shape_of(R, C))
-    cuda_build.check_fits(lib, "fused_cascade", R, C, "fused_cascade")
-    fn = lib.tmt_fused_cascade
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @kernel_span("fused_cascade")
 def fused_cascade(cfg: EnvConfig, colour: torch.Tensor, sub_keys: torch.Tensor):
     """The cascade of ``cascade_reference``, as one CUDA kernel launch on a
     CUDA device; on CPU tensors, ``cascade_reference`` itself."""
-    if colour.device.type == "cpu":
+    if not cuda_build.on_card("fused_cascade", colour):
         return cascade_reference(cfg, colour, sub_keys)
-    if colour.device.type != "cuda":
-        raise ValueError(f"fused_cascade: unsupported device {colour.device}")
     if cfg.any_special:
         raise ValueError("fused_cascade runs no-specials configs only")
     B, R, C = colour.shape
-    if (R, C) != (cfg.num_rows, cfg.num_cols):
-        raise ValueError(f"board shape {(R, C)} does not match the config")
-    if colour.dtype != torch.int32 or not colour.is_contiguous():
-        raise ValueError("colour must be a contiguous int32 tensor")
-    if (
-        sub_keys.dtype != torch.int64
-        or sub_keys.shape != (B, 2)
-        or sub_keys.device != colour.device
-        or not sub_keys.is_contiguous()
-    ):
-        raise ValueError("sub_keys must be a contiguous int64[B, 2] tensor on colour's device")
-
+    cuda_build.check_inputs("fused_cascade", cfg, (("colour", colour, torch.int32, (B, R, C)),
+                                                   ("sub_keys", sub_keys, torch.int64, (B, 2))))
     dev = colour.device
     out = torch.empty_like(colour)
     elim = torch.empty(B, dtype=torch.int32, device=dev)
     trips = torch.empty(B, dtype=torch.int32, device=dev)
     truncated = torch.empty(B, dtype=torch.bool, device=dev)
     mask = torch.empty(B, cfg.num_actions, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        fn = _kernel(R, C, dev.index)
-        err = fn(
-            colour.data_ptr(), sub_keys.data_ptr(), out.data_ptr(), elim.data_ptr(),
-            trips.data_ptr(), truncated.data_ptr(), mask.data_ptr(),
-            B, R, C, cfg.num_colours, cfg.max_cascades,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_cascade kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
+    cuda_build.launch(
+        "tmt_fused_cascade", dev, (R, C), colour.data_ptr(), sub_keys.data_ptr(), out.data_ptr(),
+        elim.data_ptr(), trips.data_ptr(), truncated.data_ptr(), mask.data_ptr(),
+        B, R, C, cfg.num_colours, cfg.max_cascades,
+    )
     return out, elim, trips, truncated, mask

@@ -24,9 +24,6 @@ CUDA tensors and runs ``cascade_sp_reference`` on CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from .. import cuda_build
@@ -36,9 +33,6 @@ from ..profiling import kernel_span
 from .board_ops import apply_refill, draw_colour_grid, gravity
 from .lines import _row_col_ids, extension_lengths, plain_has_any_line
 from .runs import BIG, _cummax, _cummin_rev, colour_run_extents
-
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
 
 # Why a board froze (bits OR-ed into ``reasons``).
 REASON_LEN5 = 1  # cookie line too long (>= 9) or a shared >= 5 line
@@ -450,58 +444,30 @@ def cascade_sp_reference(
     return x, k, trips, elim, new, act, frozen, plain_has_any_line(cfg, x), reasons
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(R: int, C: int, device: int):
-    """The launch function for R x C boards on card ``device``, after the
-    fit check: both once per shape and card."""
-    lib = cuda_build.load("cascade_sp", cuda_build.shape_of(R, C))
-    cuda_build.check_fits(lib, "cascade_sp_chunk", R, C, "cascade_sp_chunk")
-    fn = lib.tmt_cascade_sp
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @kernel_span("cascade_sp_chunk")
 def cascade_sp_chunk(
     cfg: EnvConfig, colour, kind, sub_keys, trips, elim, frozen, limit: int
 ):
     """The simple trips of ``cascade_sp_reference``, as one CUDA kernel
     launch on a CUDA device; on CPU tensors, ``cascade_sp_reference``."""
-    if colour.device.type == "cpu":
+    if not cuda_build.on_card("cascade_sp_chunk", colour):
         return cascade_sp_reference(cfg, colour, kind, sub_keys, trips, elim, frozen, limit)
-    if colour.device.type != "cuda":
-        raise ValueError(f"cascade_sp_chunk: unsupported device {colour.device}")
     _check_config(cfg)
     B, R, C = colour.shape
-    if (R, C) != (cfg.num_rows, cfg.num_cols):
-        raise ValueError(f"board shape {(R, C)} does not match the config")
-    for name, t, dtype, shape in (
+    inputs = (colour, kind, sub_keys, trips, elim, frozen)
+    cuda_build.check_inputs("cascade_sp_chunk", cfg, (
         ("colour", colour, torch.int32, (B, R, C)), ("kind", kind, torch.int32, (B, R, C)),
         ("sub_keys", sub_keys, torch.int64, (B, 2)), ("trips", trips, torch.int32, (B,)),
         ("elim", elim, torch.int32, (B,)), ("frozen", frozen, torch.int32, (B,)),
-    ):
-        if t.dtype != dtype or tuple(t.shape) != shape or t.device != colour.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on {colour.device}")
+    ))
     dev = colour.device
-    out_c = torch.empty_like(colour)
-    out_k = torch.empty_like(kind)
-    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(6)]
-    active = torch.empty(B, dtype=torch.bool, device=dev)
-    o_trips, o_elim, o_new, o_act, o_frozen, o_reasons = outs
-    with torch.cuda.device(dev):
-        fn = _kernel(R, C, dev.index)
-        err = fn(
-            colour.data_ptr(), kind.data_ptr(), sub_keys.data_ptr(), trips.data_ptr(),
-            elim.data_ptr(), frozen.data_ptr(), out_c.data_ptr(), out_k.data_ptr(),
-            o_trips.data_ptr(), o_elim.data_ptr(), o_new.data_ptr(), o_act.data_ptr(),
-            o_frozen.data_ptr(), active.data_ptr(), o_reasons.data_ptr(),
-            B, R, C, cfg.num_colours, cfg.max_cascades, int(limit),
-            int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"cascade_sp_chunk kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
-    return out_c, out_k, o_trips, o_elim, o_new, o_act, o_frozen, active, o_reasons
+    out = (torch.empty_like(colour), torch.empty_like(kind),
+           *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)),  # trips .. frozen
+           torch.empty(B, dtype=torch.bool, device=dev),  # active
+           torch.empty(B, dtype=torch.int32, device=dev))  # reasons
+    cuda_build.launch(
+        "tmt_cascade_sp", dev, (R, C), *(t.data_ptr() for t in inputs),
+        *(t.data_ptr() for t in out), B, R, C, cfg.num_colours, cfg.max_cascades, int(limit),
+        int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser), int(cfg.bomb),
+    )
+    return out

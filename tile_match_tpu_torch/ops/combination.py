@@ -22,6 +22,7 @@ neither read nor written.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -32,13 +33,9 @@ from ..config import EnvConfig, KIND_BOMB, KIND_COOKIE, KIND_NORMAL
 from ..profiling import kernel_span
 from .activate import OP_BOMB2, OP_H_LASER, OP_MASKSCAN, OP_V_LASER, machine_init, push_frame, run_machine
 
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
-
 # the cap bits the kernel returns per board (csrc/machine.cuh kCap*): a
 # micro-step's push was dropped; the step budget ran out with frames live
 CAP_STACK, CAP_STEPS = 8, 16
-MAX_CELLS = 65535  # 16-bit cell indices of the refill
 
 
 def _at(x, coord):
@@ -144,26 +141,15 @@ def combination_match(cfg: EnvConfig, colour, kind, coord1, coord2):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(R: int, C: int, device: int):
-    """(launch function, plan function) of the library for R x C boards on
-    card ``device``: once per shape and card."""
-    lib = cuda_build.load("combination", cuda_build.shape_of(R, C))
-    fn = lib.tmt_combination_trip
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    plan = lib.tmt_combination_trip_plan
-    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    plan.restype = ctypes.c_int
-    return fn, plan
-
-
-@functools.lru_cache(maxsize=None)
-def _plan(B: int, R: int, C: int, K: int, SM: int, device: int):
-    """K5's persistent grid for B boards on card ``device`` (the current
-    one): (warps a block, blocks, bytes of device-memory scratch a warp, 0
-    when it lies in shared memory).  Once per batch size, shape and card."""
+def _plan(lib, device, B: int, R: int, C: int, K: int, SM: int):
+    """K5's persistent grid for B boards with ``lib`` on ``device``: (warps
+    a block, blocks, bytes of device-memory scratch a warp, 0 when it lies
+    in shared memory).  Once per library, card and sizes."""
     out = (ctypes.c_longlong * 3)()
-    err = _kernel(R, C, device)[1](B, R, C, K, SM, out)
+    plan = cuda_build.c_function(lib, "tmt_combination_trip_plan",
+                                 [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        err = plan(B, R, C, K, SM, out)
     if err != 0:
         raise RuntimeError(f"combination_trip: no launch plan for {B} {R}x{C} boards: "
                            f"cudaError_t {err}")
@@ -197,55 +183,38 @@ def combination_trip(cfg: EnvConfig, colour, kind, key, coord1, coord2, comb):
     colour and kind are the tensors passed in (contiguous), which the
     kernel writes on the flagged boards only; key and the counts are fresh
     tensors.  On the CPU nothing is written in place."""
-    if colour.device.type == "cpu":
+    if not cuda_build.on_card("combination_trip", colour):
         from .. import engine
 
         return engine.combination_branch(cfg, colour, kind, key, coord1, coord2, comb)
-    if colour.device.type != "cuda":
-        raise ValueError(f"combination_trip: unsupported device {colour.device}")
     B, R, C = colour.shape
-    if (R, C) != (cfg.num_rows, cfg.num_cols):
-        raise ValueError(f"board shape {(R, C)} does not match the config")
-    if R * C > MAX_CELLS:
-        raise ValueError(
-            f"combination_trip: a {R}x{C} board ({R * C} cells) is beyond the kernel's "
-            f"{MAX_CELLS} cells"
-        )
-    dev = colour.device
     coord1 = coord1.to(torch.int32).contiguous()
     coord2 = coord2.to(torch.int32).contiguous()
     comb = comb.to(torch.bool).contiguous()
     key = key.contiguous()
-    for name, t, dtype, shape in (
+    cuda_build.check_inputs("combination_trip", cfg, (
         ("colour", colour, torch.int32, (B, R, C)), ("kind", kind, torch.int32, (B, R, C)),
         ("key", key, torch.int64, (B, 2)), ("coord1", coord1, torch.int32, (B, 2)),
         ("coord2", coord2, torch.int32, (B, 2)), ("comb", comb, torch.bool, (B,)),
-    ):
-        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)} tensor on {dev}")
+    ))
+    dev = colour.device
     key_out = torch.empty_like(key)
     elim, act, caps, live = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4))
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return colour, kind, key_out, elim, act, ovf
     K, SM = cfg.num_colours, cfg.stack_max
-    with torch.cuda.device(dev):
-        fn, _ = _kernel(R, C, dev.index)
-        warps, blocks, scratch_bytes = _plan(B, R, C, K, SM, dev.index)
-        scratch = (None if scratch_bytes == 0 else
-                   torch.empty(warps * blocks * scratch_bytes, dtype=torch.uint8, device=dev))
-        err = fn(
-            colour.data_ptr(), kind.data_ptr(), key.data_ptr(), coord1.data_ptr(),
-            coord2.data_ptr(), comb.data_ptr(), key_out.data_ptr(), elim.data_ptr(),
-            act.data_ptr(), ovf.data_ptr(), caps.data_ptr(), live.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, R, C, K, SM,
-            cfg.activation_steps_max, warps, blocks, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"combination_trip kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
+    warps, blocks, scratch_bytes = _plan(cuda_build.library("combination_trip", dev, (R, C)), dev,
+                                         B, R, C, K, SM)
+    scratch = (None if scratch_bytes == 0 else
+               torch.empty(warps * blocks * scratch_bytes, dtype=torch.uint8, device=dev))
+    cuda_build.launch(
+        "tmt_combination_trip", dev, (R, C), colour.data_ptr(), kind.data_ptr(), key.data_ptr(),
+        coord1.data_ptr(), coord2.data_ptr(), comb.data_ptr(), key_out.data_ptr(), elim.data_ptr(),
+        act.data_ptr(), ovf.data_ptr(), caps.data_ptr(), live.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, R, C, K, SM,
+        cfg.activation_steps_max, warps, blocks,
+    )
     if cfg.debug_checks:
         raise_caps(cfg, caps.cpu(), live.cpu())
     return colour, kind, key_out, elim, act, ovf

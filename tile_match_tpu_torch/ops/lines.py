@@ -16,16 +16,14 @@ CUDA kernel on CUDA tensors (``csrc/line_test.cu``, one library for
 every board shape), and its plain
 version, the run-extent scans below (``plain_run_member_mask``,
 ``plain_has_any_line``: torch ops on any device), on CPU tensors; any
-other device raises.  ``launches`` counts the kernel's launches; each runs in program
-span ``line_test`` with ``boards`` (the launch's batch) and ``what``
-(``member`` or ``any``).
+other device raises.  ``cuda_build.launches["line_test"]`` counts the
+kernel's launches; each runs in program span ``line_test`` with ``boards``
+(the launch's batch) and ``what`` (``member`` or ``any``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -33,34 +31,6 @@ from .. import cuda_build
 from ..config import EnvConfig
 from ..profiling import span as program_span
 from .runs import BIG, _cummax, _cummin_rev, _shift, colour_run_extents, true_run_extents
-
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel() -> dict:
-    """The launch functions (``member``, ``any``) of the one library, which
-    takes every board shape."""
-    lib = cuda_build.load("line_test")
-    fns = {}
-    for what in ("member", "any"):
-        fn = getattr(lib, f"tmt_line_test_{what}")
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[what] = fn
-    return fns
-
-
-def _on_card(colour: torch.Tensor) -> bool:
-    """Whether ``colour`` takes the kernel (a CUDA tensor) or the plain
-    version (a CPU tensor); any other device raises."""
-    if colour.device.type == "cpu":
-        return False
-    if colour.device.type != "cuda":
-        raise ValueError(f"line test: unsupported device {colour.device}")
-    return True
-
 
 def _line_test(colour: torch.Tensor, what: str) -> torch.Tensor:
     """The kernel's ``member`` mask bool[B, R, C] or ``any`` bool[B] of
@@ -74,14 +44,9 @@ def _line_test(colour: torch.Tensor, what: str) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.bool, device=colour.device)
     out = torch.empty(shape, dtype=torch.bool, device=colour.device)
     colour = colour.contiguous()
-    with program_span("line_test", boards=B, what=what), torch.cuda.device(colour.device):
-        fn = _kernel()[what]
-        err = fn(colour.data_ptr(), out.data_ptr(), B, R, C,
-                 torch.cuda.current_stream(colour.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"line test kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
+    with program_span("line_test", boards=B, what=what):
+        cuda_build.launch(f"tmt_line_test_{what}", colour.device, None, colour.data_ptr(),
+                          out.data_ptr(), B, R, C)
     return out
 
 
@@ -178,7 +143,7 @@ def run_member_mask(cfg: EnvConfig, colour: torch.Tensor) -> torch.Tensor:
     """bool[B, R, C]: cells of ANY >= 3 same-colour run — the redraw target
     of board generation (``engine.make_playable``).  One kernel launch on a
     CUDA tensor."""
-    if _on_card(colour):
+    if cuda_build.on_card("line_test", colour):
         return _line_test(colour, "member")
     return plain_run_member_mask(cfg, colour)
 
@@ -215,7 +180,7 @@ def first_line_info(cfg: EnvConfig, colour: torch.Tensor):
 def has_any_line(cfg: EnvConfig, colour: torch.Tensor) -> torch.Tensor:
     """bool[B]: does any >= 3 colour run exist anywhere on the board?  One
     kernel launch on a CUDA tensor."""
-    if _on_card(colour):
+    if cuda_build.on_card("line_test", colour):
         return _line_test(colour, "any")
     return plain_has_any_line(cfg, colour)
 

@@ -24,39 +24,20 @@ from .. import cuda_build
 from ..config import EnvConfig
 from ..profiling import kernel_span
 
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
-
 # the cap bits the kernel returns per board (csrc/trip_sp.cu kCap*), in the
 # order the plain trip meets their checks
 CAP_LINES, CAP_QUEUE, CAP_EMIT, CAP_STACK = 1, 2, 4, 8
-MAX_CELLS = 65535  # 16-bit cell indices of the refill
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(R: int, C: int, device: int):
-    """(launch function, scratch bytes of one board as a function of (K,
-    lines_max, stack_max), the block's shared-memory limit) for R x C
-    boards on card ``device``: once per shape and card."""
-    lib = cuda_build.load("trip_sp", cuda_build.shape_of(R, C))
-    fn = lib.tmt_specials_trip
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    smem = lib.tmt_specials_trip_smem
-    smem.argtypes = [ctypes.c_int] * 5
-    smem.restype = ctypes.c_longlong
-    lib.tmt_smem_optin.argtypes = []
-    lib.tmt_smem_optin.restype = ctypes.c_int
-    return fn, smem, lib.tmt_smem_optin()
-
-
-def check_size(R: int, C: int) -> None:
-    """Raise ValueError, with the sizes, for a board K4 does not take."""
-    if R < 1 or C < 1 or R * C > MAX_CELLS:
-        raise ValueError(
-            f"specials_trip: a {R}x{C} board ({R * C} cells) is beyond the kernel's "
-            f"{MAX_CELLS} cells"
-        )
+def _scratch_bytes(lib, device, R: int, C: int, K: int, LM: int, SM: int) -> int:
+    """The bytes of device memory one board's scratch takes with ``lib`` on
+    ``device``: 0 where it fits a block's shared memory.  Once per library,
+    card and sizes."""
+    smem = cuda_build.c_function(lib, "tmt_specials_trip_smem", [ctypes.c_int] * 5,
+                                 ctypes.c_longlong)
+    need = smem(R, C, K, LM, SM)
+    return 0 if need <= cuda_build.smem_optin(lib, device) else need
 
 
 def raise_caps(cfg: EnvConfig, caps: torch.Tensor, lines: torch.Tensor) -> None:
@@ -84,23 +65,15 @@ def specials_trip(cfg: EnvConfig, colour, kind, sub, trips):
     the refill's ``fold_in``).  Returns (colour, kind, elim, activated, new
     int32[n], ovf bool[n]), equal to ``engine.specials_cascade_trip``'s:
     the CUDA kernel on a CUDA device, the plain trip on CPU tensors."""
-    if colour.device.type == "cpu":
+    if not cuda_build.on_card("specials_trip", colour):
         from .. import engine
 
         return engine.specials_cascade_trip(cfg, colour, kind, sub, trips)
-    if colour.device.type != "cuda":
-        raise ValueError(f"specials_trip: unsupported device {colour.device}")
     n, R, C = colour.shape
-    if (R, C) != (cfg.num_rows, cfg.num_cols):
-        raise ValueError(f"board shape {(R, C)} does not match the config")
-    check_size(R, C)
-    for name, t, dtype, shape in (
+    cuda_build.check_inputs("specials_trip", cfg, (
         ("colour", colour, torch.int32, (n, R, C)), ("kind", kind, torch.int32, (n, R, C)),
         ("sub", sub, torch.int64, (n, 2)), ("trips", trips, torch.int32, (n,)),
-    ):
-        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != colour.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype}{list(shape)} tensor on {colour.device}")
+    ))
     dev = colour.device
     out = [torch.empty_like(colour), torch.empty_like(kind)]
     out += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
@@ -110,21 +83,16 @@ def specials_trip(cfg: EnvConfig, colour, kind, sub, trips):
     if n == 0:
         return (*out, ovf)
     K, LM, SM = cfg.num_colours, cfg.lines_max, cfg.stack_max
-    with torch.cuda.device(dev):
-        fn, smem, optin = _kernel(R, C, dev.index)
-        bytes_ = smem(R, C, K, LM, SM)
-        scratch = None if bytes_ <= optin else torch.empty(n * bytes_, dtype=torch.uint8, device=dev)
-        err = fn(
-            colour.data_ptr(), kind.data_ptr(), sub.data_ptr(), trips.data_ptr(),
-            *(t.data_ptr() for t in out), ovf.data_ptr(), caps.data_ptr(), lines.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            n, R, C, K, LM, SM, int(cfg.cookie), int(cfg.vertical_laser),
-            int(cfg.horizontal_laser), int(cfg.bomb), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"specials_trip kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
+    lib = cuda_build.library("specials_trip", dev, (R, C))
+    bytes_ = _scratch_bytes(lib, dev, R, C, K, LM, SM)
+    scratch = None if bytes_ == 0 else torch.empty(n * bytes_, dtype=torch.uint8, device=dev)
+    cuda_build.launch(
+        "tmt_specials_trip", dev, (R, C), colour.data_ptr(), kind.data_ptr(), sub.data_ptr(),
+        trips.data_ptr(), *(t.data_ptr() for t in out), ovf.data_ptr(), caps.data_ptr(),
+        lines.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        n, R, C, K, LM, SM, int(cfg.cookie), int(cfg.vertical_laser), int(cfg.horizontal_laser),
+        int(cfg.bomb),
+    )
     if cfg.debug_checks:
         raise_caps(cfg, caps.cpu(), lines.cpu())
     return (*out, ovf)

@@ -27,9 +27,9 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import random as trandom
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..envs.batched import batched_reset, batched_step, random_effective
 from ..models import dqn
-from ..parity import resolve_device
 from .distributed import TIMEOUT, all_hosts_mean
 
 

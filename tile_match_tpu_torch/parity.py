@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .config import EnvConfig
+from .cuda_build import resolve_device
 from .ops.board_ops import (
     apply_refill,
     apply_reroll_rows,
@@ -34,18 +35,6 @@ from .ops.effective import effective_mask
 from .ops.lines import first_line_info, get_colour_lines
 from .ops.resolve import resolve_colour_matches
 from .state import action_table
-
-
-def resolve_device(device) -> torch.device:
-    """The device of a Gym entry point: the card unless the caller names
-    another.  Raises when no card is there; nothing falls back."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the port on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -57,10 +57,6 @@ import time
 
 from torch.autograd import _profiler_enabled
 
-PORT_KERNELS = ("cascade_kernel", "cascade_sp_kernel", "mask_sp_kernel", "specials_trip_kernel",
-                "combination_trip_kernel", "threefry_", "line_test_")
-
-
 class Span:
     """One record of the span log: ``name``, ``start_ns`` and ``end_ns``
     (``time.time_ns()``; ``end_ns`` None while open), ``parent`` (the
@@ -175,17 +171,6 @@ def _merged(intervals) -> list:
     return out
 
 
-def kernel_modules() -> dict:
-    """The modules of the port's kernel wrappers by kernel name; each counts
-    its kernel's launches in ``launches``."""
-    from . import random
-    from .ops import cascade, cascade_sp, combination, lines, mask_sp, trip_sp
-
-    return {"fused_cascade": cascade, "cascade_sp_chunk": cascade_sp, "settled_mask_sp": mask_sp,
-            "specials_trip": trip_sp, "combination_trip": combination, "threefry_words": random,
-            "line_test": lines}
-
-
 @contextlib.contextmanager
 def trace(logdir: str | None):
     """``torch.profiler`` trace context writing a Chrome trace
@@ -258,11 +243,10 @@ def timed_windows(
     import torch
 
     from . import random as trandom
+    from .cuda_build import launches, resolve_device
     from .envs.batched import batched_reset, batched_step, random_effective
-    from .parity import resolve_device
 
     device = resolve_device(device)
-    kernels = kernel_modules()
 
     def sync():
         if device.type == "cuda":
@@ -291,7 +275,7 @@ def timed_windows(
     sync()
 
     times, step_ms, dones, rewards = [], [], [], []
-    before = {n: m.launches for n, m in kernels.items()}
+    before = dict(launches)
     with trace(logdir):
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -315,7 +299,7 @@ def timed_windows(
         "step_ms": step_ms,
         "dones": dones,
         "rewards": rewards,
-        "launches": {n: m.launches - before[n] for n, m in kernels.items()},
+        "launches": {n: c - before[n] for n, c in launches.items()},
         "states": states,
         "ts": ts,
     }
@@ -443,6 +427,7 @@ def profile_step(argv) -> int:
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA card", file=sys.stderr)
         return 1
+    from . import cuda_build
     from . import random as trandom
     from .bench import CONFIGS, card_line
     from .config import EnvConfig
@@ -491,9 +476,7 @@ def profile_step(argv) -> int:
     for _ in range(4):
         one_step()
     torch.cuda.synchronize()
-    wrappers = kernel_modules()
-    for m in wrappers.values():
-        m.launches = 0
+    before = dict(cuda_build.launches)
     first = len(_log)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -511,15 +494,17 @@ def profile_step(argv) -> int:
     for name, s, e in device_ops:
         if "memcpy" not in name.lower() and "memset" not in name.lower():
             by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
-    port_us = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNELS))
+    port = [k.device_name for k in cuda_build.KERNELS.values()]
+    port_us = sum(t for n, t in by_name.items() if any(k in n for k in port))
     other_us = sum(by_name.values()) - port_us
     n = args.steps
     table = span_table(_log[first:], device_ops, launch_starts, n)
     print(f"config {args.config} B={args.batch}, {n} profiled steps")
     print(f"wall {wall_ms / n:.3f} ms/step with the profiler on")
     print(f"device busy {busy_ms / n:.3f} ms/step, {100 * busy_ms / wall_ms:.1f}% of wall")
+    counts = {k: (c - before[k]) / n for k, c in cuda_build.launches.items()}
     print(f"kernel launches {len(launch_starts) / n:.1f}/step; of the port's kernels: "
-          f"{', '.join(f'{k} {m.launches / n:.2f}' for k, m in wrappers.items())}")
+          f"{', '.join(f'{k} {c:.2f}' for k, c in counts.items())}")
     if args.dqn:
         parts = sum(table.get(p, {}).get("launches", 0.0)
                     for p in ("batched_step", "act_greedy_or_random"))

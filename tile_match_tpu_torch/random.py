@@ -29,14 +29,13 @@ with a tensor ``maxval`` takes its words from the kernel and its remainder
 from torch.  On CPU tensors the plain version runs: the ``plain_*``
 functions, int64 torch ops on any device, which the tests hold against
 ``jax.random`` and the kernel against.  Any other device raises.
-``launches`` counts the kernel's launches; each runs in program span
-``threefry`` with ``words``, the 32-bit words it writes.
+``cuda_build.launches["threefry_words"]`` counts the kernel's launches;
+each runs in program span ``threefry`` with ``words``, the 32-bit words it
+writes.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Sequence
 
@@ -49,10 +48,6 @@ from .profiling import span as program_span
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _SPLIT, _BITS = 0, 1  # tmt_threefry_words' modes
-
-# Kernel launches so far; a run resets it to see which kernels it went through.
-launches = 0
-
 
 def PRNGKey(seed: int, device) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for an int32 seed: int64[2]."""
@@ -77,34 +72,6 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel's library (one for every shape and card), its entry
-    points typed: built and loaded once."""
-    lib = cuda_build.load("threefry_words")
-    P, L, U, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
-    for name, args in (
-        ("tmt_threefry_words", [P, L, L, L, U, I, P, P]),
-        ("tmt_threefry_uniform", [P, L, L, L, U, ctypes.c_float, ctypes.c_double, ctypes.c_double, P, P]),
-        ("tmt_threefry_fold_in", [P, L, P, L, I, U, L, P, P]),
-        ("tmt_threefry_randint", [P, L, L, L, U, L, P, P]),
-    ):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = I
-    return lib
-
-
-def _on_card(keys: torch.Tensor) -> bool:
-    """Whether ``keys`` takes the kernel (a CUDA tensor) or the plain
-    version (a CPU tensor); any other device raises."""
-    if keys.device.type == "cpu":
-        return False
-    if keys.device.type != "cuda":
-        raise ValueError(f"random: unsupported device {keys.device}")
-    return True
-
-
 def _flat_keys(keys: torch.Tensor):
     """``keys`` int64[..., 2] as (k, M): M keys, key m at ``k[m]``, its two
     words adjacent (a strided view where one describes them, else a copy)."""
@@ -117,14 +84,9 @@ def _flat_keys(keys: torch.Tensor):
 
 
 def _launch(name: str, device: torch.device, words: int, *args) -> None:
-    """Entry point ``name`` of the kernel's library on ``device``'s current
-    stream, in span ``threefry``; raises if the launch failed."""
-    global launches
-    with program_span("threefry", words=words), torch.cuda.device(device):
-        err = getattr(_lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches += 1
+    """Entry point ``name`` of the kernel on ``device``, in span ``threefry``."""
+    with program_span("threefry", words=words):
+        cuda_build.launch(name, device, None, *args)
 
 
 def _words(keys: torch.Tensor, n: int, offset: int, mode: int) -> torch.Tensor:
@@ -154,7 +116,7 @@ def _counters(n: int, offset: int, device) -> torch.Tensor:
 def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: int64[..., 2] -> int64[..., num, 2]; keys
     ``[offset, offset + num)`` of a larger split."""
-    if _on_card(keys):
+    if cuda_build.on_card("threefry_words", keys):
         return _words(keys, num, offset, _SPLIT)
     return plain_split(keys, num, offset)
 
@@ -162,7 +124,7 @@ def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: ``data`` is an int or an integer tensor that
     broadcasts against ``keys[..., 0]``."""
-    if not _on_card(keys):
+    if not cuda_build.on_card("threefry_words", keys):
         return plain_fold_in(keys, data)
     # an int is passed as a value, an int32 or int64 tensor where it lies
     # (broadcast by strides)
@@ -189,7 +151,7 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 def random_bits(keys: torch.Tensor, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
     """32 random bits per element: int64[..., *shape] of uint32 values,
     the words from flat index ``offset`` on."""
-    if _on_card(keys):
+    if cuda_build.on_card("threefry_words", keys):
         return _words(keys, math.prod(shape), offset, _BITS).reshape(*keys.shape[:-1], *shape)
     return plain_random_bits(keys, shape, offset)
 
@@ -200,7 +162,7 @@ def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval) -> to
     ``maxval`` is an int or an integer tensor that broadcasts against
     ``shape`` (a bound computed on the card, read without a host sync)."""
     span = _randint_span(minval, maxval)
-    if not _on_card(keys):
+    if not cuda_build.on_card("threefry_words", keys):
         return plain_randint(keys, shape, minval, maxval)
     if torch.is_tensor(span):
         halves = split(keys)
@@ -221,7 +183,7 @@ def uniform(
     """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``
     (``plain_uniform`` says how); on CUDA tensors the kernel computes the
     same operations, each rounded on its own, in its one launch."""
-    if not _on_card(keys):
+    if not cuda_build.on_card("threefry_words", keys):
         return plain_uniform(keys, shape, minval, maxval, offset)
     lo, hi = np.float32(minval), np.float32(maxval)
     n = math.prod(shape)

@@ -93,7 +93,7 @@ def coverage(cfg, batch: int, steps: int, device) -> dict:
 
 def main(argv=None) -> int:
     from ..bench import make_config
-    from ..parity import resolve_device
+    from ..cuda_build import resolve_device
 
     ap = argparse.ArgumentParser(description="K2's coverage of the specials cascade")
     ap.add_argument("--config", type=int, default=3)

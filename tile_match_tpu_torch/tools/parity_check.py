@@ -88,9 +88,9 @@ def replay_fixture(device, path: str = FIXTURES[1]) -> int:
 
 
 def _launches() -> dict:
-    from ..profiling import kernel_modules
+    from ..cuda_build import launches
 
-    return {name: m.launches for name, m in kernel_modules().items()}
+    return dict(launches)
 
 
 def _launched(device, before: dict, names, tag: str) -> None:
@@ -257,7 +257,7 @@ def gate(config: int, device, batch: int | None = None) -> None:
 
 def main(argv=None) -> int:
     from ..bench import make_config
-    from ..parity import resolve_device
+    from ..cuda_build import resolve_device
 
     ap = argparse.ArgumentParser(description="the port's parity checks")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")

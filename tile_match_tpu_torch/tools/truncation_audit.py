@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..bench import make_config
-    from ..parity import resolve_device
+    from ..cuda_build import resolve_device
 
     ap = argparse.ArgumentParser(description="truncated board-steps of a rollout")
     ap.add_argument("--config", type=int, default=3)

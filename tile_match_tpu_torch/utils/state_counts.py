@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
+from ..cuda_build import resolve_device
 from ..ops.effective import effective_mask
 from ..ops.lines import has_any_line
-from ..parity import resolve_device
 
 
 def is_valid_states(cfg: EnvConfig, colours, device=None):

@@ -26,10 +26,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# wrapper span -> the device name of its kernel
-KERNELS = {"cascade_sp_chunk": "cascade_sp_kernel", "specials_trip": "specials_trip_kernel",
-           "settled_mask_sp": "mask_sp_kernel", "combination_trip": "combination_trip_kernel",
-           "fused_cascade": "cascade_kernel"}
+# the kernels whose wrapper's span bears the kernel's name and covers the
+# whole call (K1-K5)
+WRAPPED = ("cascade_sp_chunk", "specials_trip", "settled_mask_sp", "combination_trip",
+           "fused_cascade")
 LEAD_LIMIT_US = 50.0
 
 
@@ -42,7 +42,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from tile_match_tpu_torch import profiling
+    from tile_match_tpu_torch import cuda_build, profiling
     from tmt_bench import check, harness, manifest
     from tmt_bench.program import PortProgram
     from tmt_bench.run import card_line
@@ -56,7 +56,8 @@ def main(argv=None) -> int:
                            PortProgram, time.time())
     ops = res["profile"]["ops"]
     ok = True
-    for wrapper, kernel in KERNELS.items():
+    for wrapper in WRAPPED:
+        kernel = cuda_build.KERNELS[wrapper].device_name
         spans = [s for s in profiling.spans() if s.name == wrapper]
         starts = sorted(s for n, s, _ in ops if kernel in n)
         if not spans and not starts:
